@@ -1,0 +1,98 @@
+"""32-anchor contact force frames on the MANO mesh (counterpart of
+``vpho_tpu/models/anchor.py``).
+
+Each anchor sits on a mesh triangle (barycentric combination of 3 vertices) with a local frame
+built from the triangle normal and the downstream bone direction.  Tables come from the CPF
+asset files when present, else the same seeded synthetic layout as the JAX package.
+"""
+from __future__ import annotations
+
+import os
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..utils import transforms as T
+from ..utils.hand import SKELETON_LEVEL, build_vert2joint
+from .mano import MANOModel
+
+_LABEL_LEVEL = {
+    "WIM": [5], "WMM": [12], "WRM": [19, 18], "WPM": [26, 25],
+    "MTP": [6, 0], "MIP": [7], "MMP": [13], "MRP": [20], "MPP": [27],
+    "PTD": [1], "PID": [8], "PMD": [14], "PRD": [21], "PPD": [28],
+    "DTT": [2, 3, 4], "DIT": [9, 11, 10], "DMT": [15, 17, 16],
+    "DRT": [22, 24, 23], "DPT": [29, 31, 30],
+}
+
+
+def _corresponding_skeleton() -> np.ndarray:
+    """(32, 2) skeleton edge per anchor id."""
+    S = SKELETON_LEVEL
+    rows = [
+        S[0][1], S[0][2], S[0][3], S[0][3], S[0][4], S[0][4],
+        S[0][0], S[0][0], S[1][1], S[1][2], S[1][3], S[1][4],
+        S[2][0], S[2][1], S[2][2], S[2][3], S[2][4],
+        S[3][0], S[3][0], S[3][0],
+        S[3][1], S[3][1], S[3][1],
+        S[3][2], S[3][2], S[3][2],
+        S[3][3], S[3][3], S[3][3],
+        S[3][4], S[3][4], S[3][4],
+    ]
+    labels = np.array([lab for v in _LABEL_LEVEL.values() for lab in v])
+    return np.stack(rows, axis=0)[np.argsort(labels)]
+
+
+class ForceAnchorTables(NamedTuple):
+    face_vert_idx: torch.Tensor    # (32, 3) int64 vertex ids
+    anchor_weight: torch.Tensor    # (32, 3) barycentric (ones column prepended)
+    skeleton: torch.Tensor         # (32, 2) int64 joint-id pairs for the y direction
+    vert2joint: torch.Tensor       # (21, 778)
+
+
+def load_anchor_tables(mano: MANOModel, asset_path: str = "asset/2021_CVPR_CPF",
+                       device="cpu") -> ForceAnchorTables:
+    anchor_root = os.path.join(asset_path, "anchor")
+    fvi_path = os.path.join(anchor_root, "face_vertex_idx.txt")
+    aw_path = os.path.join(anchor_root, "anchor_weight.txt")
+    if os.path.exists(fvi_path) and os.path.exists(aw_path):
+        face_vert_idx = np.loadtxt(fvi_path, dtype=np.int32)
+        anchor_weight = np.loadtxt(aw_path)
+    else:
+        rng = np.random.RandomState(7)
+        face_vert_idx = rng.randint(0, 778, size=(32, 3)).astype(np.int32)
+        anchor_weight = rng.rand(32, 2) * 0.5
+    anchor_weight = np.concatenate([np.ones([anchor_weight.shape[0], 1]), anchor_weight], axis=1)
+    v2j = build_vert2joint(mano.J_regressor.cpu().numpy())
+    return ForceAnchorTables(
+        face_vert_idx=torch.as_tensor(face_vert_idx.astype(np.int64), device=device),
+        anchor_weight=torch.as_tensor(anchor_weight.astype(np.float32), device=device),
+        skeleton=torch.as_tensor(_corresponding_skeleton().astype(np.int64), device=device),
+        vert2joint=torch.as_tensor(v2j, device=device),
+    )
+
+
+def anchor_points_and_frames(tables: ForceAnchorTables, verts: torch.Tensor):
+    """verts (..., 778, 3) -> anchors (..., 32, 3), frames (..., 32, 3, 3) whose columns are
+    the local x, y, z axes."""
+    tri = verts[..., tables.face_vert_idx.reshape(-1), :].reshape(verts.shape[:-2] + (32, 3, 3))
+    b1 = tri[..., 1, :] - tri[..., 0, :]
+    b2 = tri[..., 2, :] - tri[..., 0, :]
+    joints = torch.einsum("...vd,jv->...jd", verts, tables.vert2joint)
+    y_raw = joints[..., tables.skeleton[:, 1], :] - joints[..., tables.skeleton[:, 0], :]
+    z = T.normalize(torch.linalg.cross(b1, b2, dim=-1))
+    y = T.normalize(y_raw)
+    x = torch.linalg.cross(y, z, dim=-1)
+    y = T.normalize(torch.linalg.cross(z, x, dim=-1))
+    frames = torch.stack([x, y, z], dim=-1)
+    w = tables.anchor_weight
+    anchors = w[:, 1:2] * b1 + w[:, 2:3] * b2 + tri[..., 0, :]
+    return anchors, frames
+
+
+def force_local_to_global(tables: ForceAnchorTables, force_local: torch.Tensor,
+                          verts: torch.Tensor):
+    """Returns (force_point, force_global), each (..., 32, 3)."""
+    point, frame = anchor_points_and_frames(tables, verts)
+    force_global = (frame * force_local[..., None, :]).sum(-1)
+    return point, force_global

@@ -1,0 +1,193 @@
+"""Shared building blocks (counterpart of ``vpho_tpu/models/layers.py``), NCHW.
+
+``compute_dtype`` (None or ``torch.bfloat16``) is the JAX package's bf16 policy: parameters
+stay float32 and every conv / linear casts its input and weights to the compute dtype.
+Batch norm always normalizes in float32 (as Flax does) and returns the input's dtype.
+Attribute names follow the reference torch modules, so ``state_dict`` keys match the
+reference checkpoints.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def lrelu(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, 0.01)
+
+
+def _cast(dtype, *ts):
+    return ts if dtype is None else tuple(None if t is None else t.to(dtype) for t in ts)
+
+
+class Conv2d(nn.Conv2d):
+    def __init__(self, *args, compute_dtype=None, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        return self._conv_forward(*_cast(self.compute_dtype, x, self.weight, self.bias))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    def __init__(self, *args, compute_dtype=None, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        x, w, b = _cast(self.compute_dtype, x, self.weight, self.bias)
+        return F.conv_transpose2d(x, w, b, self.stride, self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
+class Linear(nn.Linear):
+    def __init__(self, *args, compute_dtype=None, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        return F.linear(*_cast(self.compute_dtype, x, self.weight, self.bias))
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """torch defaults (eps 1e-5), normalized in float32, returned in the input dtype."""
+
+    def forward(self, x):
+        y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
+                         self.bias, self.training, self.momentum, self.eps)
+        return y.to(x.dtype)
+
+
+class Residual(nn.Module):
+    """Pre-activation residual: BN-LReLU-1x1(C/2)-BN-LReLU-3x3(C/2)-BN-LReLU-1x1(C), with a
+    1x1 projection skip (``conv4``) when the channel counts differ."""
+
+    def __init__(self, in_ch: int, out_ch: int, compute_dtype=None):
+        super().__init__()
+        d = compute_dtype
+        self.bn = BatchNorm2d(in_ch)
+        self.conv1 = Conv2d(in_ch, out_ch // 2, 1, compute_dtype=d)
+        self.bn1 = BatchNorm2d(out_ch // 2)
+        self.conv2 = Conv2d(out_ch // 2, out_ch // 2, 3, padding=1, compute_dtype=d)
+        self.bn2 = BatchNorm2d(out_ch // 2)
+        self.conv3 = Conv2d(out_ch // 2, out_ch, 1, compute_dtype=d)
+        self.conv4 = Conv2d(in_ch, out_ch, 1, compute_dtype=d) if in_ch != out_ch else None
+
+    def forward(self, x):
+        h = self.conv1(lrelu(self.bn(x)))
+        h = self.conv2(lrelu(self.bn1(h)))
+        h = self.conv3(lrelu(self.bn2(h)))
+        skip = x if self.conv4 is None else self.conv4(x)
+        return h + skip.to(h.dtype)
+
+
+class Encoder(nn.Module):
+    """1x1 project + 4 blocks of 2 Residuals, each block followed by a 2x2 max pool.
+
+    (B, C_in, 32, 32) -> flattened (B, 1024) plus the per-block maps (``x_ls[1]`` is the
+    (B, 256, 8, 8) map that feeds the cross modules)."""
+
+    def __init__(self, in_ch: int, hid_dim: int = 256, n_blocks: int = 4, n_modules: int = 2,
+                 compute_dtype=None):
+        super().__init__()
+        self.n_modules = n_modules
+        self.project = Conv2d(in_ch, hid_dim, 1, compute_dtype=compute_dtype)
+        self.reg = nn.ModuleList([Residual(hid_dim, hid_dim, compute_dtype)
+                                  for _ in range(n_blocks * n_modules)])
+
+    def forward(self, x):
+        x = self.project(x)
+        x_ls = []
+        for i, block in enumerate(self.reg):
+            x = block(x)
+            if (i + 1) % self.n_modules == 0:
+                x = F.max_pool2d(x, 2, 2)
+                x_ls.append(x)
+        return x.reshape(x.shape[0], -1), x_ls
+
+
+class HeadHeatmap(nn.Module):
+    """conv3x3 -> conv3x3 -> BN -> (identity, the reference's ``LeakyReLU(True)``, D12) ->
+    deconv4x4/s2 -> BN -> ReLU -> 1x1, the last conv in float32.  32x32 -> 64x64."""
+
+    def __init__(self, in_ch: int, out_dim: int, hidden_dim: int = 128, compute_dtype=None):
+        super().__init__()
+        d = compute_dtype
+        self.conv_layers = nn.Sequential(
+            Conv2d(in_ch, hidden_dim, 3, padding=1, compute_dtype=d),
+            Conv2d(hidden_dim, hidden_dim, 3, padding=1, compute_dtype=d),
+            BatchNorm2d(hidden_dim),
+        )
+        self.deconv_layers = nn.Sequential(
+            ConvTranspose2d(hidden_dim, hidden_dim // 2, 4, stride=2, padding=1, bias=False,
+                            compute_dtype=d),
+            BatchNorm2d(hidden_dim // 2),
+            nn.ReLU(),
+        )
+        self.final_layer = Conv2d(hidden_dim // 2, out_dim, 1)
+
+    def forward(self, x):
+        x = self.deconv_layers(self.conv_layers(x))
+        return self.final_layer(x.float())
+
+
+def nerf_embed(x: torch.Tensor, multires: int = 10) -> torch.Tensor:
+    """(..., D) -> (..., D * (1 + 2 * multires)): [x, sin(f0 x), cos(f0 x), sin(f1 x), ...]."""
+    freqs = 2.0 ** torch.arange(multires, dtype=x.dtype, device=x.device)
+    angles = x[..., None, :] * freqs[:, None]
+    enc = torch.stack([torch.sin(angles), torch.cos(angles)], dim=-2)
+    return torch.cat([x, enc.reshape(x.shape[:-1] + (2 * multires * x.shape[-1],))], dim=-1)
+
+
+def sinusoid_table(length: int, d_model: int, device=None) -> torch.Tensor:
+    position = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    div_term = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
+                         * (-math.log(10000.0) / d_model))
+    pe = torch.zeros((length, d_model), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(position * div_term)
+    pe[:, 1::2] = torch.cos(position * div_term)
+    return pe
+
+
+class MultiheadAttention(nn.Module):
+    """Self-attention with torch's ``nn.MultiheadAttention`` parameter layout (packed
+    ``in_proj_weight`` [q; k; v]) over a batch-first (B, L, d) input."""
+
+    def __init__(self, d_model: int, n_heads: int, compute_dtype=None):
+        super().__init__()
+        self.n_heads = n_heads
+        self.compute_dtype = compute_dtype
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
+        self.out_proj = Linear(d_model, d_model, compute_dtype=compute_dtype)
+
+    def forward(self, x):
+        B, L, d = x.shape
+        hd = d // self.n_heads
+        qkv = F.linear(*_cast(self.compute_dtype, x, self.in_proj_weight, self.in_proj_bias))
+        q, k, v = qkv.reshape(B, L, 3, self.n_heads, hd).unbind(2)
+        q = q / math.sqrt(hd)
+        w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, L, d)
+        return self.out_proj(out)
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Post-norm encoder layer (d_ff 2048, ReLU), LayerNorm eps 1e-6 as in the JAX package.
+    Dropout is inactive at inference and not modelled."""
+
+    def __init__(self, d_model: int = 512, n_heads: int = 2, d_ff: int = 2048,
+                 compute_dtype=None):
+        super().__init__()
+        self.self_attn = MultiheadAttention(d_model, n_heads, compute_dtype)
+        self.linear1 = Linear(d_model, d_ff, compute_dtype=compute_dtype)
+        self.linear2 = Linear(d_ff, d_model, compute_dtype=compute_dtype)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-6)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-6)
+
+    def forward(self, x):
+        x = self.norm1((x + self.self_attn(x)).float())
+        return self.norm2((x + self.linear2(torch.relu(self.linear1(x)))).float())
