@@ -61,11 +61,21 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B,S", [(64, 100), (1, 37), (3, 16), (2, 150)])
-def test_bank_mlp_kernel_matches_plain(cuda_device, B, S):
-    n, D, O = 32, 256, 3
+# K1's shapes: the blessed one, then its edges.  R < 64 (1 x 37); tiles spanning up to 4
+# samples, whose ``add`` rows are staged with the tile (16, 37, 150), and more, read from L2
+# (5, 9); n = 1 and 5, not a multiple of the row ranges per bank; O = 1..4.
+K1_SHAPES = [(64, 100, 32, 3), (1, 37, 32, 3), (3, 16, 32, 3), (2, 150, 32, 3),
+             (20, 5, 5, 1), (7, 9, 1, 4), (4, 37, 5, 2), (3, 100, 1, 3)]
+
+
+@pytest.mark.parametrize("B,S,n,O", K1_SHAPES)
+def test_bank_mlp_kernel_matches_plain(cuda_device, B, S, n, O):
+    D = 256
     p, w1p, add, w2, b2 = _bank_case(7, B, S, n, D, O)
-    w2 = w2 * 0.2                 # keep one-ulp bf16 flips of h below the 1e-3 bar
+    # atol 1e-3 / rtol 1e-2: kernel and plain sum in other orders, so a hidden value on a bf16
+    # rounding boundary may round either way; that one-ulp flip times |W2| must stay under
+    # 1e-3, hence the smaller W2
+    w2 = w2 * 0.2
     before = K1.launches
     got = _port_bank(p, w1p, add, w2, b2, S, cuda_device)
     torch.cuda.synchronize()

@@ -23,13 +23,16 @@ from test_torch_port_cuda import _bank_case, _dist_case, _port_bank, assert_argm
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("B,S,n,D,O", [
+BANK_SHAPES = [
     (3, 16, 4, 256, 3),    # 16-aligned S
     (2, 5, 4, 256, 3),     # S < 16
     (2, 20, 2, 384, 3),    # S not a multiple of 16, wider hidden
     (1, 100, 8, 256, 3),   # the blessed S
     (5, 12, 4, 256, 3),    # B not divisible by the JAX kernel's group of 2
-])
+]
+
+
+@pytest.mark.parametrize("B,S,n,D,O", BANK_SHAPES)
 def test_bank_mlp_plain_matches_pallas(B, S, n, D, O):
     args = _bank_case(B * 100 + S, B, S, n, D, O)
     ref = np.asarray(fused_bank_mlp(*map(jnp.asarray, args), S, use_pallas=True, interpret=True))
@@ -38,6 +41,44 @@ def test_bank_mlp_plain_matches_pallas(B, S, n, D, O):
     assert K1.launches == before          # the CPU path never counts a launch
     assert got.shape == (B * S, n, O)
     np.testing.assert_allclose(got, ref, rtol=0.03, atol=0.03)
+
+
+@pytest.mark.parametrize("B,S,n,D,O", BANK_SHAPES)
+def test_bank_mlp_prepared_is_bit_identical(B, S, n, D, O):
+    """The prepared operands (W1 K-major, W2 padded to 8 columns in core-matrix order) hold
+    exactly the plain ones: the prepared plain path equals the unprepared one bit for bit."""
+    p, w1p, add, w2, b2 = _bank_case(B * 100 + S, B, S, n, D, O)
+    bf = torch.bfloat16
+    t = lambda a, dt=torch.float32: torch.from_numpy(a).to(dtype=dt)
+    w = K1.prepare(t(w1p, bf), t(w2, bf), t(b2))
+    assert w.w1t.shape == (n, D, 256) and w.w2p.shape == (n, D // 8, 8, 8)
+    w1_back, w2_back = K1.unprepare(w)
+    assert torch.equal(w1_back, t(w1p, bf)) and torch.equal(w2_back, t(w2, bf))
+    assert not w.w2p[:, :, O:].any()                  # the padding columns are zero
+    before = K1.launches
+    got = K1.bank_mlp_prepared(t(p, bf), w, t(add), S)
+    assert K1.launches == before
+    torch.testing.assert_close(got, _port_bank(p, w1p, add, w2, b2, S), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("loader", ["load_mano_pkl", "synthetic_mano", "load_mano",
+                                    "build_registry_from_models_dir", "synthetic_registry",
+                                    "load_registry", "load_anchor_tables"])
+def test_loaders_default_to_cuda(monkeypatch, loader):
+    from vpho_tpu_torch.models import anchor, mano, ycb
+
+    calls = {
+        "load_mano_pkl": lambda: mano.load_mano_pkl("MANO_RIGHT.pkl"),
+        "synthetic_mano": lambda: mano.synthetic_mano(),
+        "load_mano": lambda: mano.load_mano(),
+        "build_registry_from_models_dir": lambda: ycb.build_registry_from_models_dir("models"),
+        "synthetic_registry": lambda: ycb.synthetic_registry(verts_per_obj=64),
+        "load_registry": lambda: ycb.load_registry(),
+        "load_anchor_tables": lambda: anchor.load_anchor_tables(mano.synthetic_mano(device="cpu")),
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[loader]()
 
 
 @pytest.mark.parametrize("B,N,P,V", [

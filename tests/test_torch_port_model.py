@@ -17,6 +17,7 @@ from vpho_tpu.models import vpho as JV
 from vpho_tpu.utils.torch_import import export_vpho_state_dict
 from vpho_tpu_torch.data import fixtures as tfix
 from vpho_tpu_torch.models import vpho as TV
+from vpho_tpu_torch.ops import bank_mlp as K1
 from vpho_tpu_torch.utils.weights import state_dict_from_jax
 
 torch.set_num_threads(1)
@@ -110,6 +111,40 @@ def test_denoiser_scores(setup):
                            method=getattr(JV.VPHONet, f"denoise_{head}_from_proj"))
         got = den.score_from_proj(den.precompute_feat(_t(feat)), _t(xs), _t(t1), 0.7)
         assert rel_err(got, ref) < 2e-5, head
+
+
+def test_bf16_hand_fast_path_matches_jax(setup):
+    """K1's call site: the bf16 hand head's ODE fast path (shared t, per-sample projection,
+    operands prepared once by ``prepare_fused``), which on the CPU runs K1's plain version,
+    against JAX's ``denoise_hand_from_proj`` under the bf16 policy with the same weights.
+    Bar: 0.03 of the score's scale, since bf16 rounds at other points in XLA's einsum path
+    (there the t, pose and conditioning terms are each rounded to bf16 before they are added;
+    here they are added in f32 and h is rounded once, after the relu)."""
+    _, variables, tmodel, _, _ = setup
+    jmodel = JV.VPHONet(compute_dtype=jnp.bfloat16)
+    port = TV.VPHONet(compute_dtype=torch.bfloat16).eval()
+    port.load_state_dict(tmodel.state_dict(), strict=True)
+    den = port.denoiser_hand
+    assert den.head.runs_k1
+    rng = np.random.RandomState(3)
+    B, S = 2, 5
+    feat = rng.randn(B, 1024).astype(np.float32)
+    xs = rng.randn(B * S, 96).astype(np.float32)
+    t1 = np.full((1, 1), 0.4, np.float32)
+    proj = jmodel.apply(variables, feat, method=JV.VPHONet.precompute_hand_feat)
+    ref = np.asarray(jmodel.apply(variables, proj, xs, t1, 0.7,
+                                  method=JV.VPHONet.denoise_hand_from_proj), np.float32)
+    with torch.no_grad():
+        feat_proj = den.precompute_feat(_t(feat))
+        fused = den.head.prepare_fused(feat_proj)
+        before = K1.launches
+        got = den.score_from_proj(feat_proj, _t(xs), _t(t1), 0.7, fused)
+        assert K1.launches == before                  # the CPU takes the plain version
+        # prepared once or made at the call: the same operands, the same score
+        torch.testing.assert_close(den.score_from_proj(feat_proj, _t(xs), _t(t1), 0.7), got,
+                                   rtol=0, atol=0)
+    assert got.shape == ref.shape == (B * S, 96)
+    assert np.abs(_np(got) - ref).max() <= 0.03 * np.abs(ref).max()
 
 
 def test_encoder_heatmap_head_fpn(setup):

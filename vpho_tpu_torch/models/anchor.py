@@ -15,6 +15,7 @@ import torch
 
 from ..utils import transforms as T
 from ..utils.hand import SKELETON_LEVEL, build_vert2joint
+from ..utils.platform import resolve_device
 from .mano import MANOModel
 
 _LABEL_LEVEL = {
@@ -51,7 +52,9 @@ class ForceAnchorTables(NamedTuple):
 
 
 def load_anchor_tables(mano: MANOModel, asset_path: str = "asset/2021_CVPR_CPF",
-                       device="cpu") -> ForceAnchorTables:
+                       device=None) -> ForceAnchorTables:
+    """The force-anchor tables on ``device`` (``cuda`` unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     anchor_root = os.path.join(asset_path, "anchor")
     fvi_path = os.path.join(anchor_root, "face_vertex_idx.txt")
     aw_path = os.path.join(anchor_root, "anchor_weight.txt")

@@ -8,16 +8,18 @@ The bank head's first layer is linear, so inside the ODE loop the constant condi
 ``feat @ W1[:, 384:]`` is projected once per sample (``precompute_feat``) and the shared step
 time ``t`` arrives with batch 1.  Under the bf16 policy, with one shared ``t`` and
 ``num * out >= 32`` (the 32-bank hand head, not the 3-bank object head), the head runs as the
-fused kernel K1 (``ops/bank_mlp.py``); otherwise it is two einsums.
+fused kernel K1 (``ops/bank_mlp.py``), whose constant operands ``prepare_fused`` makes once
+per ODE solve; otherwise it is two einsums.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn as nn
 
-from ..ops.bank_mlp import bank_mlp
+from ..ops.bank_mlp import BankWeights, bank_mlp_prepared, prepare
 
 T_DIM = 128
 POSE_DIM = 256
@@ -27,6 +29,15 @@ TOTAL_FEAT_DIM = TP_DIM + FEAT_DIM
 
 HEAD_OUT_DIM = {"mano_pose": 96, "obj": 9}
 HEAD_BANKS = {"mano_pose": 32, "obj": 3}
+
+
+class FusedOperands(NamedTuple):
+    """What K1's call site keeps over an ODE solve: the kernel's weights, the bf16 t-slice of
+    W1, and ``add0`` = bias1 + the conditioning projection (B, num, hidden) in f32."""
+
+    weights: BankWeights
+    w_t: torch.Tensor
+    add0: torch.Tensor
 
 
 class ParallelLinear(nn.Module):
@@ -56,27 +67,38 @@ class BankMLPHead(nn.Module):
         feat, w = self._cast(feat, self.head[0].weight[:, TP_DIM:])
         return torch.einsum("bc,ncd->bnd", feat, w)
 
-    def fused_inputs(self, t_feat, pose_feat, feat_proj):
-        """The operands of K1 for the ODE fast path: (p, W1p, add, W2, b2) with the shared
-        t-embedding, bias1 and the conditioning projection folded into ``add``."""
+    @property
+    def runs_k1(self) -> bool:
+        """Whether the ODE fast path runs as K1: bf16 policy and a wide head (the 32-bank
+        hand head, not the 3-bank object head)."""
+        return self.compute_dtype is not None and self.num * self.out_dim >= 32
+
+    def prepare_fused(self, feat_proj: torch.Tensor) -> FusedOperands:
+        """K1's operands that stay fixed over an ODE solve, made once per forward."""
         l1, l2 = self.head[0], self.head[2]
-        bf = torch.bfloat16
-        t_term = torch.einsum("bc,ncd->bnd", *self._cast(t_feat, l1.weight[:, :T_DIM]))
-        add = t_term.float() + l1.bias + feat_proj.float()
-        return (pose_feat.to(bf).contiguous(), l1.weight[:, T_DIM:TP_DIM].to(bf).contiguous(),
-                add.contiguous(), l2.weight.to(bf).contiguous(), l2.bias.float().contiguous())
+        return FusedOperands(prepare(l1.weight[:, T_DIM:TP_DIM], l2.weight, l2.bias),
+                             l1.weight[:, :T_DIM].to(torch.bfloat16),
+                             (l1.bias + feat_proj.float()).contiguous())
+
+    def fused_inputs(self, t_feat, pose_feat, fused: FusedOperands):
+        """The per-step operands of K1: p, and ``add`` with the shared t-embedding folded in."""
+        t_term = torch.einsum("bc,ncd->bnd", t_feat.to(torch.bfloat16), fused.w_t)
+        return pose_feat.to(torch.bfloat16).contiguous(), t_term.float() + fused.add0
 
     def forward(self, t_feat: torch.Tensor, pose_feat: torch.Tensor,
                 feat: torch.Tensor | None = None,
-                feat_proj: torch.Tensor | None = None) -> torch.Tensor:
+                feat_proj: torch.Tensor | None = None,
+                fused: FusedOperands | None = None) -> torch.Tensor:
         """t_feat (Bt, 128) with Bt in {1, B}; pose_feat (B, 256); either the raw ``feat``
-        (B, 1024) or a per-sample ``feat_proj`` (B or B/S, num, hidden)."""
+        (B, 1024) or a per-sample ``feat_proj`` (B or B/S, num, hidden).  ``fused`` holds
+        K1's operands from :meth:`prepare_fused`, made here when absent."""
         l1, l2 = self.head[0], self.head[2]
         if (feat_proj is not None and feat_proj.shape[0] != pose_feat.shape[0]
-                and t_feat.shape[0] == 1 and self.compute_dtype is not None
-                and self.num * self.out_dim >= 32):
+                and t_feat.shape[0] == 1 and self.runs_k1):
             S = pose_feat.shape[0] // feat_proj.shape[0]
-            out = bank_mlp(*self.fused_inputs(t_feat, pose_feat, feat_proj), S)
+            fused = fused if fused is not None else self.prepare_fused(feat_proj)
+            p, add = self.fused_inputs(t_feat, pose_feat, fused)
+            out = bank_mlp_prepared(p, fused.weights, add, S)
             return out.reshape(out.shape[0], self.num * self.out_dim)
         t_feat, pose_feat, w_t, w_p, b1 = self._cast(
             t_feat, pose_feat, l1.weight[:, :T_DIM], l1.weight[:, T_DIM:TP_DIM], l1.bias)
@@ -129,7 +151,8 @@ class Denoiser(nn.Module):
         t_feat, p = self.tp_feat(sampled_pose, t)
         return self.head(t_feat, p, feat=feat).float() / (std + 1e-7)
 
-    def score_from_proj(self, feat_proj, sampled_pose, t, std):
-        """ODE fast path with the precomputed conditioning projection."""
+    def score_from_proj(self, feat_proj, sampled_pose, t, std, fused=None):
+        """ODE fast path with the precomputed conditioning projection (and, for K1, the
+        operands of ``head.prepare_fused``)."""
         t_feat, p = self.tp_feat(sampled_pose, t)
-        return self.head(t_feat, p, feat_proj=feat_proj).float() / (std + 1e-7)
+        return self.head(t_feat, p, feat_proj=feat_proj, fused=fused).float() / (std + 1e-7)

@@ -18,6 +18,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.platform import resolve_device
+
 TIP_IDS = (745, 317, 444, 556, 673)
 JOINT_REORDER = (0, 13, 14, 15, 16, 1, 2, 3, 17, 4, 5, 6, 18, 10, 11, 12, 19, 7, 8, 9, 20)
 PARENTS = (-1, 0, 1, 2, 0, 4, 5, 0, 7, 8, 0, 10, 11, 0, 13, 14)
@@ -45,8 +47,10 @@ def _undo_chumpy(x):
     return np.asarray(x.r if hasattr(x, "r") else x, dtype=np.float64)
 
 
-def load_mano_pkl(path: str, device="cpu") -> MANOModel:
-    """Load an official MANO pkl (chumpy arrays inside) into tensors on ``device``."""
+def load_mano_pkl(path: str, device=None) -> MANOModel:
+    """Load an official MANO pkl (chumpy arrays inside) into tensors on ``device`` (``cuda``
+    unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     with open(path, "rb") as f:
         data = pickle.load(f, encoding="latin1")
     j_reg = data["J_regressor"]
@@ -62,8 +66,9 @@ def load_mano_pkl(path: str, device="cpu") -> MANOModel:
     ), side, device)
 
 
-def synthetic_mano(seed: int = 0, side: str = "right", device="cpu") -> MANOModel:
+def synthetic_mano(seed: int = 0, side: str = "right", device=None) -> MANOModel:
     """Deterministic synthetic MANO-shaped model (same draws as the JAX package)."""
+    device = resolve_device(device)
     rng = np.random.RandomState(seed)
     joints = np.zeros((NUM_JOINTS, 3))
     finger_dirs = {
@@ -103,8 +108,9 @@ _DEFAULT_SEARCH = (
 )
 
 
-def load_mano(mano_root: str | None = None, side: str = "right", device="cpu") -> MANOModel:
+def load_mano(mano_root: str | None = None, side: str = "right", device=None) -> MANOModel:
     """The official MANO model if available, else the synthetic one."""
+    device = resolve_device(device)
     fname = f"MANO_{side.upper()}.pkl"
     for root in ([mano_root] if mano_root else list(_DEFAULT_SEARCH)):
         path = os.path.join(root, fname)

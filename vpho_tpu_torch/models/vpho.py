@@ -215,12 +215,15 @@ def postprocess_diffusion_hand(final_6d: torch.Tensor, shape: torch.Tensor,
 
 
 def _score_fn(denoiser: Denoiser, sde: SDE, feat: torch.Tensor):
-    """(x, t) -> score closure; the conditioning projection is computed once per sample."""
+    """(x, t) -> score closure; the conditioning projection, and K1's constant operands where
+    the head runs as K1, are computed once per forward."""
     feat_proj = denoiser.precompute_feat(feat)
+    fused = denoiser.head.prepare_fused(feat_proj) if denoiser.head.runs_k1 else None
 
     def fn(x: torch.Tensor, t: float) -> torch.Tensor:
         t_arr = torch.full((1, 1), t, dtype=torch.float32, device=x.device)
-        return denoiser.score_from_proj(feat_proj, x, t_arr, float(sde.marginal_prob(None, t)[1]))
+        return denoiser.score_from_proj(feat_proj, x, t_arr, float(sde.marginal_prob(None, t)[1]),
+                                        fused)
 
     return fn
 

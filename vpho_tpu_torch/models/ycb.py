@@ -15,6 +15,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.platform import resolve_device
+
 YCB_CLASSES = {
     1: "002_master_chef_can", 2: "003_cracker_box", 3: "004_sugar_box",
     4: "005_tomato_soup_can", 5: "006_mustard_bottle", 6: "007_tuna_fish_can",
@@ -86,8 +88,9 @@ def _registry_from_dicts(per_obj: list, names: list, device) -> YCBRegistry:
                        com=stack("CoM"), names=tuple(names))
 
 
-def build_registry_from_models_dir(model_dir: str, device="cpu") -> YCBRegistry:
+def build_registry_from_models_dir(model_dir: str, device=None) -> YCBRegistry:
     """Build from real DexYCB meshes (``textured_simple.obj`` per class dir)."""
+    device = resolve_device(device)
     names = [YCB_CLASSES[i] for i in sorted(YCB_CLASSES)]
     def read_json(name):
         path = os.path.join(os.path.dirname(model_dir), name)
@@ -111,8 +114,9 @@ def build_registry_from_models_dir(model_dir: str, device="cpu") -> YCBRegistry:
     return _registry_from_dicts(per_obj, names, device)
 
 
-def synthetic_registry(seed: int = 0, verts_per_obj: int = 4000, device="cpu") -> YCBRegistry:
+def synthetic_registry(seed: int = 0, verts_per_obj: int = 4000, device=None) -> YCBRegistry:
     """Deterministic synthetic registry with DexYCB-like object scales."""
+    device = resolve_device(device)
     rng = np.random.RandomState(seed)
     names = [YCB_CLASSES[i] for i in sorted(YCB_CLASSES)]
     per_obj = []
@@ -129,8 +133,9 @@ def synthetic_registry(seed: int = 0, verts_per_obj: int = 4000, device="cpu") -
 _CACHE_DEFAULT = "asset/ours/object_mesh_info_tpu.pkl"
 
 
-def load_registry(model_dir: str | None = None, device="cpu") -> YCBRegistry:
+def load_registry(model_dir: str | None = None, device=None) -> YCBRegistry:
     """Real registry when meshes are on disk, synthetic otherwise."""
+    device = resolve_device(device)
     if model_dir and os.path.isdir(model_dir):
         return build_registry_from_models_dir(model_dir, device)
     if os.path.exists(_CACHE_DEFAULT):

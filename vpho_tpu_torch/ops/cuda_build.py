@@ -4,13 +4,16 @@ Each ``csrc/<name>.cu`` exposes a plain C function and is compiled by ``nvcc`` i
 ``build/vpho_tpu_torch/lib<name>_<hash>.so`` at the checkout's root, then loaded with
 ``ctypes``.  The hash covers the source and the flags, so an edited source rebuilds on its next
 use.  Nothing is built when the module is imported: the first kernel launch builds what it
-needs, and :func:`build_all` builds every source at once, one ``nvcc`` process each.
+needs, and :func:`build_all` builds every source at once, one ``nvcc`` process each.  ptxas's
+report of each kernel's registers, shared memory and spills is kept beside the library
+(``.log``) and read back by :func:`ptxas_report`.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -20,7 +23,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vpho_tpu_torch"
 SOURCES = ("bank_mlp", "min_dist")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -56,7 +59,20 @@ def _finish(name: str, job) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log.decode(errors='replace')}")
+    out.with_suffix(".log").write_bytes(log)
     os.replace(tmp, out)
+
+
+def ptxas_report(name: str) -> Dict[str, int]:
+    """Registers, shared memory and spill bytes of ``csrc/<name>.cu``'s kernel (its largest
+    entry), parsed from the ``-Xptxas -v`` log of its build."""
+    log = library_path(name).with_suffix(".log").read_text(errors="replace")
+    report = {"registers": 0, "smem_bytes": 0, "spill_bytes": 0}
+    for key, pattern in (("registers", r"Used (\d+) registers"),
+                         ("smem_bytes", r"(\d+) bytes smem"),
+                         ("spill_bytes", r"(\d+) bytes spill (?:stores|loads)")):
+        report[key] = max((int(v) for v in re.findall(pattern, log)), default=0)
+    return report
 
 
 def build_all() -> float:
