@@ -17,6 +17,18 @@ Phases, one output line each:
               bound into the denoiser, held against the kernel run
   5. profile  one more batch under torch.profiler: device busy time, idle share, top kernels,
               and the count and time of copy / cast kernels
+  6. eval     the eval entry point, ``engine.runner.run`` in-process, at the blessed config
+              (bf16, 4 batches of 64, the viz dumps of batch 0): frames/s over the batches after
+              the first, the predict / metrics / host split, peak memory, K1 = 50 and K2 = 2
+              launches a batch, the headline metrics, the files written, and ``--eval_path``
+              re-scoring the dumped pkl to the object report the eval logged
+  7. eval_f32 the metrics and testers on the card against the CPU for the same predictions,
+              TF32 left on, within 1e-5 m
+  8. modes    at full width: one batch of candidates per integrator (euler, heun, rk4, dpm2m at
+              10 steps; dpm3m on the karras grid), K1's launches equal to its score evaluations;
+              every aggregation choice on one candidate set, K2 held against its plain version
+              at the force-selection shape (N = topk_obj^2); the default aggregation timed under
+              the eigh and the power quaternion mean
 Then the card's ``name, power.limit``, the kernels' JSON line and, last, the result line.
 Any failed check raises, so the script exits non-zero and prints no result.  It needs one
 CUDA device and the checkout it sits in; without either it fails.
@@ -178,7 +190,7 @@ def main() -> int:
         h = torch.relu(h.view(n, B, S, D) + add.transpose(0, 1)[:, :, None]).to(torch.bfloat16)
         return torch.bmm(h.view(n, R, D), w2)
 
-    flops = 2.0 * R * p.shape[1] * D * n + 2.0 * R * D * O * n
+    flops = K1.flops(R, p.shape[1], D, n, O)
     k1_bytes = nbytes(p, w1, add, w2, b2) + R * n * O * 4
     kernels["bank_mlp"] = dict(
         name="bank_mlp", route="cuda", source="vpho_tpu_torch/csrc/bank_mlp.cu",
@@ -198,10 +210,9 @@ def main() -> int:
     def dist_case(nc):
         return (torch.randn(B, nc, 32, 3, generator=g) * 0.08).to(dev).contiguous()
 
-    k2_err = 0.0
-    cases = (("stage4", dist_case(100), verts), ("stage5", dist_case(31), verts),
-             ("N1", dist_case(1)[:2].contiguous(), verts[:2].contiguous()))
-    for name, fp, vv in cases:
+    def k2_hold(name, fp, vv):
+        """K2 against its plain version on the same inputs: dist within 1e-5, idx equal at
+        every clear minimum and never worse than the plain pick.  Returns the dist error."""
         d, i = K2.min_dist_and_idx(fp, vv)
         d_ref, i_ref = K2.min_dist_plain(fp, vv)
         torch.cuda.synchronize()
@@ -216,13 +227,15 @@ def main() -> int:
         check(bool((i == i_ref)[clear].all()), f"K2 {name}: argmin differs at a clear minimum")
         pick = lambda ix: d2.gather(-1, ix.long()[..., None])[..., 0]
         check(bool((pick(i) <= pick(i_ref) + 1e-6 * scale).all()), f"K2 {name}: argmin not minimal")
-        k2_err = max(k2_err, err)
-        del d2
+        return err
+
+    cases = (("stage4", dist_case(100), verts), ("stage5", dist_case(31), verts),
+             ("N1", dist_case(1)[:2].contiguous(), verts[:2].contiguous()))
+    k2_err = max(k2_hold(name, fp, vv) for name, fp, vv in cases)
     fp4, fp5 = cases[0][1], cases[1][1]
 
     def k2_bound(fp):
-        # 8 flops a (query, vertex) pair: the dot product, |y|^2 and the compare
-        k2_flops = 8.0 * fp[..., 0].numel() * verts.shape[1]
+        k2_flops = K2.flops(fp[..., 0].numel(), verts.shape[1])
         k2_bytes = nbytes(fp, verts) + fp[..., 0].numel() * 8
         by = "operations" if k2_flops / PEAK_FP32_FLOPS > k2_bytes / PEAK_BYTES else "bytes"
         return max(k2_flops / PEAK_FP32_FLOPS, k2_bytes / PEAK_BYTES) * 1e3, by
@@ -349,6 +362,202 @@ def main() -> int:
         copy_cast=dict(launches=sum(e.count for e in copies),
                        ms=sum(e.self_device_time_total for e in copies) / 1e3),
         top=[[e.key[:70], round(e.self_device_time_total / 1e3, 3), e.count] for e in top])
+
+    # ---- 6. eval: the eval entry point in-process at the blessed config, bf16 ------------
+    import dataclasses
+    import math
+    import os
+
+    import numpy as np
+
+    from vpho_tpu_torch.configs.config import get_config
+    from vpho_tpu_torch.diffusion import sampler as SAMP
+    from vpho_tpu_torch.engine import metrics as TM
+    from vpho_tpu_torch.engine import runner
+    from vpho_tpu_torch.engine import tester as TTE
+    from vpho_tpu_torch.engine import viz
+    from vpho_tpu_torch.models import aggregation as AGG
+    from vpho_tpu_torch.utils import transforms as TT
+
+    out_dir = os.path.join("output", "chip_smoke")
+    eval_argv = ["--mode", "eval", "--eval_full", "--eval_batch_size", "64", "--patch_size", "256",
+                 "--sample_num", "100", "--sampling_steps", "50", "--topk_hand", "30",
+                 "--topk_obj", "10", "--sample_T0", "0.65", "--compute_dtype", "bfloat16",
+                 "--output_dir", out_dir]          # --viz_freq 50: the viz dumps of batch 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K1.launches = K2.launches = 0
+    t_start = time.perf_counter()
+    trainer = runner.run(get_config(eval_argv))
+    torch.cuda.synchronize()
+    eval_wall_s = time.perf_counter() - t_start
+    eval_launches = {"bank_mlp": K1.launches, "min_dist": K2.launches}
+    eval_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res, tm = trainer.last_eval, trainer.last_eval["timing"]
+    n_eval = len(tm["frames"])
+    check(n_eval == 4 and tm["frames"] == [64] * 4, f"eval batches {tm['frames']}")
+    check(eval_launches == {"bank_mlp": 50 * n_eval, "min_dist": 2 * n_eval},
+          f"eval launch counts {eval_launches}")
+    steady = slice(1, None)                # batch 0 also counts the graph's operations
+    per_batch = {k: sum(tm[k][steady]) / (n_eval - 1) * 1e3
+                 for k in ("batch_s", "predict_s", "metrics_s")}
+    hand, obj = res["report"]["hand"]["agg_candidate"], res["report"]["object"]["mean_candidate_pose"]
+    headline = {"hand_MJE_mm": float(hand["MJE"]["both"]), "hand_PA_MJE_mm": float(hand["PA_MJE"]["both"]),
+                "hand_MVE_mm": float(hand["MVE"]["both"]),
+                **{f"obj_{k}": obj[k]["average_instance"] for k in ("MCE", "ADD", "ADDS", "CD",
+                                                                    "ADDS01d", "FSCORE@10mm")}}
+    check(all(math.isfinite(v) for v in headline.values()), f"eval headline {headline}")
+    files = sorted(os.path.relpath(os.path.join(r, f), trainer.save_dir)
+                   for r, _, fs in os.walk(trainer.save_dir) for f in fs)
+    pkl_name = "my-prediction_align-2023_CVPR_HFL.pkl"
+    want = {"info.log", pkl_name, "viz/0_hand_reg_&_diff_mean.pkl",
+            "viz/0_hand_multihyperthesis.pkl", "viz/0_obj_multihyperthesis.pkl",
+            "viz/0_optimized_force.pkl"}
+    if viz.jpg_writer_available():
+        want |= {"viz/0_gt&pd_hand_heatmap.jpg", "viz/0_gt&pd_obj_heatmap.jpg"}
+    check(set(files) == want, f"eval files {files}")
+    rescored = runner.run(get_config(["--eval_path", os.path.join(trainer.save_dir, pkl_name)]))
+    for k, table in obj.items():           # the dump has no camera: REP re-scores on a nominal K
+        key = f"{k} (nominal-K!)" if k.startswith("REP") else k
+        check(key in rescored, f"eval_path misses {key}")
+        if key == k:
+            check(rescored[k] == table, f"eval_path {k}: {rescored[k]} != {table}")
+    say(phase="eval", batches=n_eval, batch=64, sample_num=100, steps=50, dtype="bfloat16",
+        wall_s=eval_wall_s, frames_per_s=sum(tm["frames"][steady]) / sum(tm["batch_s"][steady]),
+        per_batch_ms=dict(total=per_batch["batch_s"], predict=per_batch["predict_s"],
+                          metrics=per_batch["metrics_s"],
+                          host=per_batch["batch_s"] - per_batch["predict_s"] - per_batch["metrics_s"]),
+        batch0_ms=tm["batch_s"][0] * 1e3, peak_mem_gb=eval_peak_gb, launches=eval_launches,
+        headline=headline, files=files, jpg=viz.jpg_writer_available())
+
+    # ---- 7. eval_f32: metrics and testers on the card against the CPU, TF32 left on --------
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    rng = np.random.RandomState(11)
+    n = 8
+    R = TT.axis_angle_to_matrix(torch.from_numpy(rng.randn(n, 3).astype(np.float32)))
+    t = torch.from_numpy(np.concatenate([rng.randn(n, 2) * 0.02, 0.5 + rng.rand(n, 1) * 0.2],
+                                        -1).astype(np.float32))
+    gt_rt = torch.cat([R, t[..., None]], -1)
+    dR = TT.axis_angle_to_matrix(torch.from_numpy(rng.randn(n, 3).astype(np.float32) * 0.05))
+    pd_rt = torch.cat([dR @ R, (t + torch.from_numpy(rng.randn(n, 3).astype(np.float32)) * 0.005)[..., None]], -1)
+    cam = torch.tensor([[300.0, 0, 128], [0, 300.0, 128], [0, 0, 1]]).repeat(n, 1, 1)
+    cam[:, :2, :2] *= torch.from_numpy(rng.uniform(0.8, 1.2, (n, 1, 1)).astype(np.float32))
+    ids = torch.from_numpy(rng.randint(0, 21, n).astype(np.int32))
+    gj = torch.from_numpy((rng.randn(n, 21, 3) * 0.05 + [0, 0, 0.6]).astype(np.float32))
+    gv = torch.from_numpy((rng.randn(n, 778, 3) * 0.05 + [0, 0, 0.6]).astype(np.float32))
+    pj = gj + torch.from_numpy(rng.randn(n, 21, 3).astype(np.float32)) * 0.01
+    pv = gv + torch.from_numpy(rng.randn(n, 778, 3).astype(np.float32)) * 0.01
+    right = torch.from_numpy(np.arange(n) % 3 > 0)           # both hands present
+    per_dev, tests = {}, {}
+    for name, d, reg in (("cpu", cpu, ctx_cpu.registry), ("cuda", dev, ctx_gpu.registry)):
+        mv = lambda x: x.to(d)
+        m = {**TM.hand_metrics(mv(gj), mv(pj), mv(gv), mv(pv)),
+             **TM.object_metrics(reg, mv(pd_rt), mv(gt_rt), mv(ids), mv(cam))}
+        per_dev[name] = {k: v.cpu() for k, v in m.items()}
+        th, to = TTE.TesterHand(), TTE.TesterObject(reg)
+        th.add_batch(mv(gj), mv(pj), mv(gv), mv(pv), mv(right))
+        to.add_batch(mv(pd_rt), mv(gt_rt), mv(ids), mv(cam))
+        tests[name] = (th.result(), to.result())
+    rates = set(TTE.RATE_KEYS) | {k for k in per_dev["cpu"] if k.startswith("FSCORE@")}
+    f32_metric_err = {}
+    for k, ref in per_dev["cpu"].items():
+        got = per_dev["cuda"][k]
+        if k in rates:
+            check(torch.equal(got, ref), f"eval_f32 {k}: rates differ")
+        else:
+            f32_metric_err[k] = (got - ref).abs().max().item()
+            bar = 1e-5 if k != "REP" else 1e-3          # REP is in pixels
+            check(f32_metric_err[k] <= bar, f"eval_f32 {k}: {f32_metric_err[k]} > {bar}")
+    tester_err = {}
+    for i in (0, 1):
+        for k, per in tests["cpu"][i].items():
+            tester_err[k] = max(abs(tests["cuda"][i][k][c] - v) for c, v in per.items())
+            bar = 1e-3 if k == "REP" else 1e-5
+            check(tester_err[k] <= bar, f"eval_f32 tester {k}: {tester_err[k]} > {bar}")
+    tester_err = max(v for k, v in tester_err.items() if k != "REP")
+    say(phase="eval_f32", samples=n, tf32=torch.backends.cuda.matmul.allow_tf32,
+        max_abs_err_m=f32_metric_err, tester_max_abs_err=tester_err)
+
+    # ---- 8. modes: every integrator and aggregation choice at full width, bf16 -------------
+    modes, steps, held = {}, 10, {}
+
+    def candidates(mctx):
+        held["cand"] = V.forward_candidates(model, mctx, batch, x0=x0)
+
+    for method, schedule in (("euler", "uniform"), ("heun", "uniform"), ("rk4", "uniform"),
+                             ("dpm2m", "uniform"), ("dpm3m", "karras")):
+        mctx = ctx._replace(cfg=dataclasses.replace(cfg, ode_method=method, ode_schedule=schedule,
+                                                    sampling_steps=steps))
+        K1.launches = 0
+        cand_ms = wall(lambda: candidates(mctx))
+        evals = SAMP.score_evals(method, steps)
+        check(K1.launches == evals, f"{method}: K1 launched {K1.launches}, score evaluations {evals}")
+        cand, trunk_out = held["cand"]
+        check(all(bool(torch.isfinite(cand[k]).all()) for k in ("diff_final_hand_mano",
+                                                                   "diff_final_obj_6d")),
+              f"{method}: non-finite candidates")
+        modes[f"{method}_{schedule}"] = dict(k1_launches=K1.launches, score_evals=evals, ms=cand_ms)
+
+    # every aggregation choice on the last candidate set (dpm3m on the karras grid); the
+    # inputs of K2's force-selection launch are kept to hold the kernel against its plain form
+    recorded = []
+    real_k2 = AGG.min_dist_and_idx
+
+    def recording_k2(fp, vv):
+        recorded.append((fp, vv))
+        return real_k2(fp, vv)
+
+    agg_runs = [(h, "heatmap", True) for h in ("heatmap_cascade", "heatmap", "2D_pt_pose",
+                                                 "2D_pt_joint", "average_all", "random")]
+    agg_runs += [("heatmap", o, True) for o in ("heatmap_cascade", "2D_pt_pose", "average_all",
+                                                "random")]
+    agg_runs += [("heatmap", "heatmap_cascade", False), ("heatmap_cascade", "heatmap_cascade", True)]
+    agg_k2 = {}
+    AGG.min_dist_and_idx = recording_k2
+    try:
+        for mh, mo, phys in agg_runs:
+            actx = ctx._replace(cfg=dataclasses.replace(cfg, aggregation_mode_hand=mh,
+                                                        aggregation_mode_obj=mo,
+                                                        do_physics_selection=phys))
+            K2.launches = 0
+            pd_a = V.aggregate(actx, batch, dict(cand), trunk_out)
+            name = f"{mh}/{mo}" + ("" if phys else "/no_physics")
+            agg_k2[name] = K2.launches
+            want_k2 = 2 if (mh, mo) == ("heatmap_cascade", "heatmap_cascade") else \
+                int(mo == "heatmap_cascade" and phys)
+            check(K2.launches == want_k2, f"aggregation {name}: K2 launched {K2.launches}")
+            check(all(bool(torch.isfinite(pd_a[k]).all()) for k in ("agg_obj_6d", "agg_hand_joint")),
+                  f"aggregation {name}: non-finite output")
+            if (mh, mo, phys) == ("heatmap", "heatmap_cascade", True):
+                held["force"] = recorded[-1]
+    finally:
+        AGG.min_dist_and_idx = real_k2
+    force_fp, force_verts = held["force"]
+    check(tuple(force_fp.shape) == (B, cfg.topk_obj ** 2, 32, 3), f"force selection fp {force_fp.shape}")
+    force_err = k2_hold("force_selection", force_fp, force_verts)
+
+    # the default (5-stage) aggregation under each quaternion-mean solve, in turns
+    agg_ms, agg_out = {"eigh": [], "power": []}, {}
+
+    def aggregate_with(impl):
+        agg_out[impl] = V.aggregate(ctx, batch, dict(cand), trunk_out)
+
+    try:
+        for impl in ("eigh", "power", "power", "eigh"):
+            TT.set_quat_mean_impl(impl)
+            agg_ms[impl].append(wall(lambda: aggregate_with(impl)))
+    finally:
+        TT.set_quat_mean_impl("eigh")
+    power_vs_eigh = {k: (agg_out["power"][k] - agg_out["eigh"][k]).abs().max().item()
+                     for k in ("agg_obj_6d", "agg_hand_mano")}
+    say(phase="modes", batch=B, sample_num=S, steps=steps, dtype="bfloat16", integrators=modes,
+        aggregation_k2_launches=agg_k2, force_selection_k2=dict(
+            shape=list(force_fp.shape), max_abs_err=force_err),
+        aggregation_ms={k: sorted(v) for k, v in agg_ms.items()}, power_vs_eigh_max_diff=power_vs_eigh)
+    for name in kernels:
+        kernels[name]["launches_by_path"] = {"predict": launches[name], "eval": eval_launches[name]}
+    kernels["min_dist"]["force_selection_max_abs_err"] = force_err
 
     print(card)
     print(json.dumps({"kernels": [kernels["bank_mlp"], kernels["min_dist"]]}))

@@ -86,7 +86,10 @@ def test_bank_mlp_kernel_matches_plain(cuda_device, B, S, n, O):
     torch.testing.assert_close(got, ref, rtol=1e-2, atol=1e-3)
 
 
-@pytest.mark.parametrize("B,N,V", [(64, 100, 2048), (64, 31, 2048), (2, 1, 2048), (1, 7, 5000)])
+# stage 4 (N 100), stage 5 (N 31), the standalone object cascade's force selection at
+# N = topk_obj^2 (100, 9, 1), and odd edges
+@pytest.mark.parametrize("B,N,V", [(64, 100, 2048), (64, 31, 2048), (64, 9, 2048), (64, 1, 2048),
+                                   (2, 1, 2048), (1, 7, 5000)])
 def test_min_dist_kernel_matches_plain(cuda_device, B, N, V):
     # the main path's scale: force points within ~0.1 m of object vertices ~0.05 m out
     fp, verts = _dist_case(11, B, N, 32, V, fp_scale=0.08, v_scale=0.05)

@@ -112,17 +112,37 @@ def test_cuda_wrappers_refuse_bad_inputs():
 
 
 def test_port_imports_no_jax():
+    """Every module of the package, found by walking it, imports without pulling in jax, flax
+    or the JAX package; neither the package's sources nor chip_smoke.py name them."""
     code = (
-        "import sys\n"
-        "import vpho_tpu_torch.models.vpho, vpho_tpu_torch.utils.weights\n"
-        "import vpho_tpu_torch.data.fixtures, vpho_tpu_torch.ops.cuda_build\n"
+        "import importlib, pkgutil, sys\n"
+        "import vpho_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(vpho_tpu_torch.__path__, 'vpho_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert {'vpho_tpu_torch.cli', 'vpho_tpu_torch.configs.config',\n"
+        "        'vpho_tpu_torch.engine.trainer', 'vpho_tpu_torch.engine.runner'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'vpho_tpu'))\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+    import ast
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    for path in [root / "chip_smoke.py", *sorted((root / "vpho_tpu_torch").rglob("*.py"))]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                mods = [a.name for a in node.names] if isinstance(node, ast.Import) \
+                    else [node.module or ""]
+                assert not any(m.split(".")[0] in ("jax", "flax", "vpho_tpu") for m in mods), \
+                    (path, mods)
 
 
-def test_entry_points_default_to_cuda(monkeypatch):
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    from vpho_tpu_torch.configs.config import get_config
+    from vpho_tpu_torch.engine.runner import run
+    from vpho_tpu_torch.engine.trainer import Trainer
     from vpho_tpu_torch.models import vpho as V
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -131,3 +151,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
         V.make_context(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         V.build_model(cfg)
+    full = get_config(["--mode", "eval", "--output_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(full)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run(full)
+    assert not any(tmp_path.iterdir())           # refused before writing anything

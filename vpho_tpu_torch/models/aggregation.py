@@ -1,5 +1,6 @@
-"""Multi-hypothesis cue aggregation: the 5-stage HOI orchestration (counterpart of
-``vpho_tpu/models/aggregation.py::hoi_aggregate`` and the stage helpers it calls).
+"""Multi-hypothesis cue aggregation (counterpart of ``vpho_tpu/models/aggregation.py``).
+
+The default predict path runs the 5-stage HOI orchestration ``hoi_aggregate``:
 
   1. hand heatmap cascade over 4 kinematic levels (regression pose injected as candidates)
   2. object translation top-k by heatmap, fused
@@ -7,7 +8,10 @@
   4. k x k cross-product candidates re-ranked by physics (grasped) or heatmap
   5. per-finger physics re-rank of the distal/tip hand parameters
 
-Top-k selections order scores exactly as ``jax.lax.top_k`` does (``top_k`` below).  Both nearest-vertex searches go through K2 (``ops/min_dist.py``).
+The other ``--aggregation_mode_hand/obj`` choices run the standalone aggregators
+(``aggregate_hand``, ``aggregate_obj``).  Top-k selections order scores exactly as
+``jax.lax.top_k`` does (``top_k`` below).  Every nearest-vertex search (stages 4 and 5, and the
+standalone object cascade's force selection) goes through K2 (``ops/min_dist.py``).
 """
 from __future__ import annotations
 
@@ -99,14 +103,14 @@ def select_topk_hand_level(mano: MANOModel, pose, shape, root_joint, cam_intrins
 
 def hand_heatmap_cascade(mano: MANOModel, pose, pose_regression, shape, root_joint,
                          cam_intrinsic, heatmap, bbox, k: int, is_weight: bool = True,
-                         use_regression_as_candidate: bool = True) -> Dict:
-    """4-level wrist-to-tip cascade over (B, S, 48) candidates."""
+                         use_regression_as_candidate: bool = True, n_levels: int = 4) -> Dict:
+    """Wrist-to-tip cascade over (B, S, 48) candidates; ``n_levels`` < 4 truncates it."""
     B, S = pose.shape[:2]
     if use_regression_as_candidate:
         pose = torch.cat([pose, pose_regression[:, None].expand(B, S, 48)], dim=1)
         shape = torch.cat([shape, shape], dim=1)
     levels = []
-    for level_i in range(4):
+    for level_i in range(n_levels):
         fuse_idx = MANO_PARAMS_LEVEL[level_i]
         observe_idx = [j for lv in range(level_i + 1, 5) for j in MANO_JOINT_LEVEL[lv]]
         if use_regression_as_candidate and level_i == 0:
@@ -122,6 +126,88 @@ def hand_heatmap_cascade(mano: MANOModel, pose, pose_regression, shape, root_joi
     fused_vert, fused_joint = hand_verts_meters(mano, fused_pose, shape0)
     return {"agg_hand_mano": torch.cat([fused_pose, shape0], dim=-1), "agg_vert": fused_vert,
             "agg_joint": fused_joint, "middle_data": levels}
+
+
+def _hand_result(mano: MANOModel, pose, shape0, **extra) -> Dict:
+    vert, joint = hand_verts_meters(mano, pose, shape0)
+    return {"agg_hand_mano": torch.cat([pose, shape0], dim=-1), "agg_vert": vert,
+            "agg_joint": joint, **extra}
+
+
+def hand_average_all(mano: MANOModel, pose, shape) -> Dict:
+    """Quaternion mean of every candidate."""
+    B, S = pose.shape[:2]
+    quat = T.axis_angle_to_quaternion(pose.reshape(B, S, 16, 3)).transpose(1, 2)
+    fused = T.quaternion_to_axis_angle(T.average_quaternion(quat)).reshape(B, 48)
+    return _hand_result(mano, fused, shape.reshape(B, -1, 10)[:, 0])
+
+
+def hand_select_by_heatmap(mano: MANOModel, pose, shape, root_joint, cam_intrinsic, heatmap,
+                           bbox, k: int, is_weight: bool = True) -> Dict:
+    """One level over the whole pose, scored by the heat at all 21 joints."""
+    data = select_topk_hand_level(mano, pose, shape, root_joint, cam_intrinsic, heatmap, bbox,
+                                  k, fuse_index=list(range(48)), observe_index=list(range(21)),
+                                  is_independent=False, is_weight=is_weight)
+    return _hand_result(mano, data.fused_pose[:, 0], shape[:, 0], topk=data.topk)
+
+
+def hand_select_random(mano: MANOModel, pose, shape) -> Dict:
+    """Candidate 0 (the candidates are i.i.d. samples)."""
+    return _hand_result(mano, pose[:, 0], shape[:, 0])
+
+
+def _heatmap_peaks(heatmap: torch.Tensor) -> torch.Tensor:
+    """(B, J, H, W) -> (B, J, 2) argmax positions in [-1, 1] coords (column -> x)."""
+    H, W = heatmap.shape[-2:]
+    ind = heatmap.flatten(2).argmax(-1)
+    px = (ind % W).to(heatmap.dtype) / (W - 1) * 2 - 1
+    py = (ind // W).to(heatmap.dtype) / (H - 1) * 2 - 1
+    return torch.stack([px, py], dim=-1)
+
+
+def hand_select_by_2d_pt(mano: MANOModel, pose, shape, root_joint, cam_intrinsic, heatmap,
+                         bbox, k: int, level: str = "pose") -> Dict:
+    """Rank by the distance of projected joints to the heatmap peaks.  ``level`` "pose"
+    fuses the top-k whole poses; "joint" averages the top-k positions per joint (no mesh)."""
+    B = pose.shape[0]
+    joint = hand_joints_meters(mano, pose, shape)
+    pt2d = normalize_pt2d_to_bbox(
+        T.project_points_batched(joint + root_joint[:, None, None], cam_intrinsic), bbox)
+    score = -torch.linalg.norm(pt2d - _heatmap_peaks(heatmap)[:, None], dim=-1)   # (B, N, J)
+    if level == "pose":
+        _, topk = top_k(score.sum(-1), k)
+        quat = T.axis_angle_to_quaternion(
+            take_candidates(pose, topk).reshape(B, k, 16, 3)).transpose(1, 2)
+        fused = T.quaternion_to_axis_angle(T.average_quaternion(quat)).reshape(B, 48)
+        return _hand_result(mano, fused, shape[:, 0], topk=topk)
+    _, topk = top_k(score.transpose(1, 2), k)                                     # (B, J, k)
+    jsel = torch.gather(joint.transpose(1, 2), 2, topk[..., None].expand(topk.shape + (3,)))
+    return {"agg_hand_mano": pose.new_zeros((B, 58)), "agg_vert": pose.new_zeros((B, 778, 3)),
+            "agg_joint": jsel.mean(2), "topk": topk}
+
+
+def aggregate_hand(mode: str, mano: MANOModel, **kw) -> Dict:
+    """``--aggregation_mode_hand`` dispatch."""
+    if mode in ("heatmap_cascade", "heatmap_cascade_n_level"):
+        return hand_heatmap_cascade(
+            mano, kw["pose"], kw["pose_regression"], kw["shape"], kw["root_joint"],
+            kw["cam_intrinsic"], kw["heatmap"], kw["bbox"], kw["k"],
+            is_weight=kw.get("is_weight", True),
+            use_regression_as_candidate=kw.get("use_regression_as_candidate", True),
+            n_levels=kw.get("n_level", 2) if mode.endswith("n_level") else 4)
+    if mode == "heatmap":
+        return hand_select_by_heatmap(mano, kw["pose"], kw["shape"], kw["root_joint"],
+                                      kw["cam_intrinsic"], kw["heatmap"], kw["bbox"], kw["k"],
+                                      kw.get("is_weight", True))
+    if mode in ("2D_pt_pose", "2D_pt_joint"):
+        return hand_select_by_2d_pt(mano, kw["pose"], kw["shape"], kw["root_joint"],
+                                    kw["cam_intrinsic"], kw["heatmap"], kw["bbox"], kw["k"],
+                                    level="pose" if mode.endswith("pose") else "joint")
+    if mode == "average_all":
+        return hand_average_all(mano, kw["pose"], kw["shape"])
+    if mode == "random":
+        return hand_select_random(mano, kw["pose"], kw["shape"])
+    raise NotImplementedError(mode)
 
 
 FINGER_ANCHOR_LEVELS = ([1, 2, 3, 4], [8, 9, 10, 11], [14, 15, 16, 17], [21, 22, 23, 24],
@@ -291,3 +377,88 @@ def hoi_aggregate(mano: MANOModel, registry: YCBRegistry,
     return {"obj_agg_6d": obj_agg_6d, "agg_obj_vert": obj_vert_fused,
             "hand_agg_mano": hand_final["agg_pose"], "hand_agg_vert": hand_final["agg_vert"],
             "hand_agg_joint": hand_final["agg_joint"]}
+
+
+def obj_heatmap_cascade(registry: YCBRegistry, pose6d, root_joint, obj_ids, is_right,
+                        cam_intrinsic, heatmap, bbox, k: int, is_weight: bool = True,
+                        force_selection: bool = False, force_point=None, force_global=None,
+                        is_grasped=None, phy_topk: int = 5) -> Dict:
+    """Standalone object cascade: trans1 -> rot1 -> trans2 | rot1, then either the k x k
+    physics (grasped) / heatmap re-rank (``force_selection``) or a plain trans2 + rot2 fuse.
+    The rot2 stage scores exactly the rot1 candidates, so its selection is rot1's."""
+    B = pose6d.shape[0]
+    common = dict(registry=registry, root_joint=root_joint, obj_ids=obj_ids, is_right=is_right,
+                  cam_intrinsic=cam_intrinsic, heatmap=heatmap, bbox=bbox)
+    topk, w = obj_topk_by_heatmap(pose6d=pose6d, k=k, **common)
+    fused_trans1 = obj_fuse_topk(pose6d, topk, w if is_weight else None)[:, 6:]
+    p_rot1 = torch.cat([pose6d[..., :6], fused_trans1[:, None].expand_as(pose6d[..., 6:])], -1)
+    topk_r2, w = obj_topk_by_heatmap(pose6d=p_rot1, k=k, **common)
+    fused_rot1 = obj_fuse_topk(p_rot1, topk_r2, w if is_weight else None)[:, :6]
+    p_trans2 = torch.cat([fused_rot1[:, None].expand_as(pose6d[..., :6]), pose6d[..., 6:]], -1)
+    topk_t2, _ = obj_topk_by_heatmap(pose6d=p_trans2, k=k, **common)
+
+    if force_selection:
+        if force_point is None or force_global is None or is_grasped is None:
+            raise ValueError("force selection needs force_point, force_global and is_grasped")
+        phy_topk = min(phy_topk, k * k)
+        trans2 = take_candidates(p_trans2, topk_t2)[..., 6:]                  # (B, k, 3)
+        rot2 = take_candidates(p_rot1, topk_r2)[..., :6]                      # (B, k, 6)
+        cand = torch.cat([rot2[:, :, None].expand(B, k, k, 6),
+                          trans2[:, None].expand(B, k, k, 3)], dim=-1).reshape(B, k * k, 9)
+        topk_p, _ = obj_topk_by_physics3(registry, cand, root_joint, obj_ids, is_right,
+                                         force_point, force_global, phy_topk)
+        topk_h, _ = obj_topk_by_heatmap(pose6d=cand, k=phy_topk, **common)
+        new_topk = torch.where(is_grasped.bool()[:, None], topk_p, topk_h)
+        fused = obj_fuse_topk(cand, new_topk)                                # unweighted
+    else:
+        # both final fuses are unweighted whatever is_weight says, as in the reference
+        fused = torch.cat([obj_fuse_topk(p_rot1, topk_r2)[:, :6],
+                           obj_fuse_topk(p_trans2, topk_t2)[:, 6:]], dim=-1)
+    return _obj_result(registry, fused, root_joint, obj_ids, is_right, pose6d)
+
+
+def obj_select_by_2d_pt(registry: YCBRegistry, pose6d, root_joint, obj_ids, is_right,
+                        cam_intrinsic, heatmap, bbox, k: int) -> Dict:
+    """Rank by the distance of projected keypoints to the heatmap peaks; unweighted fuse."""
+    pt3d = heads.flip_pt3d(heads.object_transform(registry, _add_root(pose6d, root_joint),
+                                                  obj_ids, "keypoint"), is_right)
+    pt2d = normalize_pt2d_to_bbox(T.project_points_batched(pt3d, cam_intrinsic), bbox)
+    score = -torch.linalg.norm(pt2d - _heatmap_peaks(heatmap)[:, None], dim=-1).sum(-1)
+    _, topk = top_k(score, k)
+    return _obj_result(registry, obj_fuse_topk(pose6d, topk), root_joint, obj_ids, is_right,
+                       pose6d)
+
+
+def _obj_result(registry: YCBRegistry, fused, root_joint, obj_ids, is_right, candidates) -> Dict:
+    vert = heads.flip_pt3d(heads.object_transform(registry, _add_root(fused, root_joint),
+                                                  obj_ids, "verts"), is_right)
+    return {"agg_6d": fused, "candidate_6d": candidates, "agg_obj_vert": vert}
+
+
+def aggregate_obj(mode: str, registry: YCBRegistry, **kw) -> Dict:
+    """``--aggregation_mode_obj`` dispatch over the standalone object aggregators."""
+    pose6d = kw["pose6d"]
+    common = (pose6d, kw["root_joint"], kw["obj_ids"], kw["is_right"])
+    if mode == "heatmap_cascade":
+        return obj_heatmap_cascade(
+            registry, *common, kw["cam_intrinsic"], kw["heatmap"], kw["bbox"], kw["k"],
+            is_weight=kw.get("is_weight", True),
+            force_selection=kw.get("force_selection", False),
+            force_point=kw.get("force_point"), force_global=kw.get("force_global"),
+            is_grasped=kw.get("is_grasped"))
+    if mode == "heatmap":
+        topk, weight = obj_topk_by_heatmap(registry, *common, kw["cam_intrinsic"], kw["heatmap"],
+                                           kw["bbox"], kw["k"])
+        fused = obj_fuse_topk(pose6d, topk, weight if kw.get("is_weight", True) else None)
+    elif mode == "2D_pt_pose":
+        return obj_select_by_2d_pt(registry, *common, kw["cam_intrinsic"], kw["heatmap"],
+                                   kw["bbox"], kw["k"])
+    elif mode == "average_all":
+        B, N = pose6d.shape[:2]
+        n = min(kw["k"], N)
+        fused = obj_fuse_topk(pose6d, torch.arange(n, device=pose6d.device)[None].expand(B, n))
+    elif mode == "random":
+        fused = obj_fuse_topk(pose6d, pose6d.new_zeros((pose6d.shape[0], 1), dtype=torch.long))
+    else:
+        raise NotImplementedError(mode)
+    return _obj_result(registry, fused, kw["root_joint"], kw["obj_ids"], kw["is_right"], pose6d)

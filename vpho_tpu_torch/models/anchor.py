@@ -99,3 +99,27 @@ def force_local_to_global(tables: ForceAnchorTables, force_local: torch.Tensor,
     point, frame = anchor_points_and_frames(tables, verts)
     force_global = (frame * force_local[..., None, :]).sum(-1)
     return point, force_global
+
+
+def force_local_to_global_np(tables: ForceAnchorTables, force_local, verts):
+    """Host (numpy, float64 inside) twin of ``force_local_to_global`` for one sample:
+    force_local (32, 3), verts (778, 3) -> (force_point, force_global), each (32, 3) float32."""
+    fvi = tables.face_vert_idx.cpu().numpy().reshape(-1)
+    verts = np.asarray(verts, np.float64)
+    tri = verts[fvi].reshape(32, 3, 3)
+    b1, b2 = tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]
+    joints = np.einsum("vd,jv->jd", verts, tables.vert2joint.cpu().numpy())
+    skel = tables.skeleton.cpu().numpy()
+    y_raw = joints[skel[:, 1]] - joints[skel[:, 0]]
+
+    def nrm(v, eps=1e-8):
+        return v / (np.sqrt((v * v).sum(-1, keepdims=True)) + eps)
+
+    z = nrm(np.cross(b1, b2))
+    x = np.cross(nrm(y_raw), z)
+    y = nrm(np.cross(z, x))
+    frame = np.stack([x, y, z], axis=-1)                                  # (32, 3, 3)
+    w = tables.anchor_weight.cpu().numpy()
+    point = w[:, 1:2] * b1 + w[:, 2:3] * b2 + tri[:, 0]
+    force_global = np.einsum("bi,bji->bj", np.asarray(force_local, np.float64), frame)
+    return point.astype(np.float32), force_global.astype(np.float32)

@@ -53,6 +53,20 @@ def flip_pt3d(pt3d: torch.Tensor, is_right: torch.Tensor) -> torch.Tensor:
     return T.flip_point3d(pt3d, ~is_right)
 
 
+def to_axsym_pose(registry: YCBRegistry, pose: torch.Tensor, obj_ids: torch.Tensor) -> torch.Tensor:
+    """Reframe a (B, 9) camera pose into the object's axial-symmetry frame."""
+    shift = registry.shift[obj_ids.long()]                              # (B, 3, 4)
+    inv_r = shift[..., :3, :3].transpose(-1, -2)
+    inv_t = -T.matmul_f32(inv_r, shift[..., :3, 3:])
+    return T.obj_mat_to_9d(T.matmul_for_rt(T.obj_9d_to_mat(pose), torch.cat([inv_r, inv_t], -1)))
+
+
+def to_cam_pose(registry: YCBRegistry, pose: torch.Tensor, obj_ids: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``to_axsym_pose``."""
+    shift = registry.shift[obj_ids.long()]
+    return T.obj_mat_to_9d(T.matmul_for_rt(T.obj_9d_to_mat(pose), shift))
+
+
 class CrossModule(nn.Module):
     """Hand/object token exchange with a gravity token.
 

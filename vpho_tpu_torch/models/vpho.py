@@ -239,10 +239,12 @@ def draw_x0(ctx: VPHOContext, batch_size: int, generator: torch.Generator | None
 @torch.inference_mode()
 def forward_candidates(model: VPHONet, ctx: VPHOContext, batch: Dict[str, torch.Tensor],
                        x0: torch.Tensor | None = None,
-                       generator: torch.Generator | None = None):
+                       generator: torch.Generator | None = None,
+                       return_trajectory: bool = False):
     """Trunk + joint hand/object ODE over B*S hypotheses, without aggregation.
     Returns ``(pd_dt, trunk_out)``.  ``x0`` (B*S, 105) is the start state; when absent it is
-    drawn from ``generator``."""
+    drawn from ``generator``.  ``return_trajectory`` adds the ODE states at every grid point
+    as ``diff_inprocess_hand_6d`` (B, S, steps, 96) and ``diff_inprocess_obj_6d``."""
     cfg = ctx.cfg
     S = cfg.sample_num
     out = model.trunk(batch)
@@ -263,7 +265,12 @@ def forward_candidates(model: VPHONet, ctx: VPHOContext, batch: Dict[str, torch.
     if x0 is None:
         x0 = draw_x0(ctx, B, generator)
     final = ode_sampler(score_both, x0.to(ctx.device, torch.float32), ctx.sde, cfg.sample_T0,
-                        cfg.sampling_steps, method=cfg.ode_method, schedule=cfg.ode_schedule)
+                        cfg.sampling_steps, method=cfg.ode_method, schedule=cfg.ode_schedule,
+                        return_trajectory=return_trajectory)
+    if return_trajectory:
+        traj, final = final
+        pd_dt["diff_inprocess_hand_6d"] = traj[..., :96].reshape(B, S, -1, 96)
+        pd_dt["diff_inprocess_obj_6d"] = traj[..., 96:].reshape(B, S, -1, 9)
     hand_mano = postprocess_diffusion_hand(final[:, :96], out["pd_mano_shape"], S)
     pd_dt["diff_final_hand_mano"] = hand_mano
     pd_dt["diff_final_hand_vert"], pd_dt["diff_final_hand_joint"] = hand_verts_meters(
@@ -275,42 +282,75 @@ def forward_candidates(model: VPHONet, ctx: VPHOContext, batch: Dict[str, torch.
 @torch.inference_mode()
 def forward_predict(model: VPHONet, ctx: VPHOContext, batch: Dict[str, torch.Tensor],
                     x0: torch.Tensor | None = None,
-                    generator: torch.Generator | None = None) -> Dict[str, torch.Tensor]:
-    """The full predict path: candidates, then the 5-stage HOI aggregation."""
+                    generator: torch.Generator | None = None,
+                    return_trajectory: bool = False) -> Dict[str, torch.Tensor]:
+    """The full predict path: candidates, then the aggregation."""
+    pd_dt, out = forward_candidates(model, ctx, batch, x0=x0, generator=generator,
+                                    return_trajectory=return_trajectory)
+    return aggregate(ctx, batch, pd_dt, out)
+
+
+@torch.inference_mode()
+def aggregate(ctx: VPHOContext, batch: Dict[str, torch.Tensor], pd_dt: Dict[str, torch.Tensor],
+              out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Fuse ``forward_candidates``'s hypotheses (``pd_dt``, trunk output ``out``) into the
+    ``agg_*`` entries of ``pd_dt``.  The default heatmap_cascade/heatmap_cascade pair runs the
+    5-stage HOI orchestration; any other ``aggregation_mode_hand/obj`` pair runs the
+    standalone aggregators."""
     cfg = ctx.cfg
-    if (cfg.aggregation_mode_hand, cfg.aggregation_mode_obj) != ("heatmap_cascade",
-                                                                 "heatmap_cascade"):
-        raise NotImplementedError("only the heatmap_cascade/heatmap_cascade aggregation is "
-                                  "ported yet")
-    pd_dt, out = forward_candidates(model, ctx, batch, x0=x0, generator=generator)
     hand_mano = pd_dt["diff_final_hand_mano"]
-    hoi = agg.hoi_aggregate(
-        ctx.mano, ctx.registry, ctx.anchor_tables,
-        cam_intrinsic=batch["cam_intr_crop_flip"],
-        root_joint_flip=batch["root_joint_flip"],
-        root_joint=batch["root_joint"],
-        is_right=batch["is_right"],
-        force_local=out["pd_phy"]["force_local"],
-        is_grasped=batch["is_grasped"],
-        hand_pose_diff=hand_mano[..., :48],
-        hand_pose_regression=out["pd_mano_pose"],
-        hand_shape=hand_mano[..., 48:],
-        hand_heatmap=out["pd_hm_hand"],
-        hand_bbox=batch["bbox_hand"],
-        hand_topk=cfg.topk_hand,
-        obj_pose6d=pd_dt["diff_final_obj_6d"],
-        obj_heatmap=out["pd_hm_obj"],
-        obj_bbox=batch["bbox_obj_rect"],
-        obj_topk=cfg.topk_obj,
-        obj_ids=batch["obj_id"],
-        is_weight=cfg.do_weighted_average,
-        use_regression_as_candidate=cfg.use_regression_as_candidate,
-        do_physics_selection=cfg.do_physics_selection,
-    )
-    pd_dt["agg_obj_6d"] = hoi["obj_agg_6d"]
-    pd_dt["agg_hand_mano"] = hoi["hand_agg_mano"]
-    pd_dt["agg_hand_vert"] = hoi["hand_agg_vert"]
-    pd_dt["agg_hand_joint"] = hoi["hand_agg_joint"]
+    mode_h, mode_o = cfg.aggregation_mode_hand, cfg.aggregation_mode_obj
+    if (mode_h, mode_o) == ("heatmap_cascade", "heatmap_cascade"):
+        hoi = agg.hoi_aggregate(
+            ctx.mano, ctx.registry, ctx.anchor_tables,
+            cam_intrinsic=batch["cam_intr_crop_flip"],
+            root_joint_flip=batch["root_joint_flip"],
+            root_joint=batch["root_joint"],
+            is_right=batch["is_right"],
+            force_local=out["pd_phy"]["force_local"],
+            is_grasped=batch["is_grasped"],
+            hand_pose_diff=hand_mano[..., :48],
+            hand_pose_regression=out["pd_mano_pose"],
+            hand_shape=hand_mano[..., 48:],
+            hand_heatmap=out["pd_hm_hand"],
+            hand_bbox=batch["bbox_hand"],
+            hand_topk=cfg.topk_hand,
+            obj_pose6d=pd_dt["diff_final_obj_6d"],
+            obj_heatmap=out["pd_hm_obj"],
+            obj_bbox=batch["bbox_obj_rect"],
+            obj_topk=cfg.topk_obj,
+            obj_ids=batch["obj_id"],
+            is_weight=cfg.do_weighted_average,
+            use_regression_as_candidate=cfg.use_regression_as_candidate,
+            do_physics_selection=cfg.do_physics_selection,
+        )
+        pd_dt["agg_obj_6d"] = hoi["obj_agg_6d"]
+        pd_dt["agg_hand_mano"] = hoi["hand_agg_mano"]
+        pd_dt["agg_hand_vert"] = hoi["hand_agg_vert"]
+        pd_dt["agg_hand_joint"] = hoi["hand_agg_joint"]
+        return pd_dt
+
+    hand_res = agg.aggregate_hand(
+        mode_h, ctx.mano, pose=hand_mano[..., :48], shape=hand_mano[..., 48:],
+        pose_regression=out["pd_mano_pose"], root_joint=batch["root_joint_flip"],
+        cam_intrinsic=batch["cam_intr_crop_flip"], heatmap=out["pd_hm_hand"],
+        bbox=batch["bbox_hand"], k=cfg.topk_hand, is_weight=cfg.do_weighted_average,
+        use_regression_as_candidate=cfg.use_regression_as_candidate)
+    # the object cascade's force selection needs anchors on the aggregated hand
+    force_point, force_global = anchor_lib.force_local_to_global(
+        ctx.anchor_tables, out["pd_phy"]["force_local"],
+        hand_res["agg_vert"] + batch["root_joint_flip"][:, None])
+    obj_res = agg.aggregate_obj(
+        mode_o, ctx.registry, pose6d=pd_dt["diff_final_obj_6d"], root_joint=batch["root_joint"],
+        obj_ids=batch["obj_id"], is_right=batch["is_right"],
+        cam_intrinsic=batch["cam_intr_crop_flip"], heatmap=out["pd_hm_obj"],
+        bbox=batch["bbox_obj_rect"], k=cfg.topk_obj, is_weight=cfg.do_weighted_average,
+        force_selection=cfg.do_physics_selection, force_point=force_point,
+        force_global=force_global, is_grasped=batch["is_grasped"])
+    pd_dt["agg_obj_6d"] = obj_res["agg_6d"]
+    pd_dt["agg_hand_mano"] = hand_res["agg_hand_mano"]
+    pd_dt["agg_hand_vert"] = hand_res["agg_vert"]
+    pd_dt["agg_hand_joint"] = hand_res["agg_joint"]
     return pd_dt
 
 

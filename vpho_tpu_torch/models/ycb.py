@@ -28,13 +28,22 @@ YCB_CLASSES = {
 }
 NUM_VERTS_SAMPLED = 2048
 
+# BOP-style symmetric classes used by the object metrics
+SYMMETRIC_CLASSES = ("024_bowl", "036_wood_block", "051_large_clamp",
+                     "052_extra_large_clamp", "061_foam_brick")
+
 
 class YCBRegistry(NamedTuple):
     """Per-object constants; axis 0 is (object_id - 1)."""
 
-    kpt3d: torch.Tensor          # (21, 27, 3) bbox lattice keypoints
-    verts_sampled: torch.Tensor  # (21, 2048, 3) FPS-sampled surface points
-    com: torch.Tensor            # (21, 3) centre of mass
+    kpt3d: torch.Tensor            # (21, 27, 3) bbox lattice keypoints
+    verts_sampled: torch.Tensor    # (21, 2048, 3) FPS-sampled surface points
+    verts_full: torch.Tensor       # (21, Vmax, 3) all vertices, padded with the first
+    verts_full_mask: torch.Tensor  # (21, Vmax) 1 where a real vertex
+    com: torch.Tensor              # (21, 3) centre of mass
+    diameter: torch.Tensor         # (21,) bounding-box diagonal
+    shift: torch.Tensor            # (21, 3, 4) to-axial-symmetry frames
+    is_symmetric: torch.Tensor     # (21,) bool
     names: tuple
 
 
@@ -52,6 +61,12 @@ def kpt27_from_bbox3d(bbox3d: np.ndarray) -> np.ndarray:
                 w = np.array([i, j, k]) / 2.0
                 kpts.append(mn + w * (mx - mn))
     return np.stack(kpts, axis=-2)
+
+
+def get_diameter(verts: np.ndarray) -> float:
+    """Bounding-box diagonal."""
+    ext = verts.max(0) - verts.min(0)
+    return float(np.sqrt((ext ** 2).sum()))
 
 
 def farthest_point_sampling(verts: np.ndarray, n: int, start_idx: int = 0) -> np.ndarray:
@@ -80,12 +95,26 @@ def load_obj_vertices(path: str) -> np.ndarray:
 
 
 def _registry_from_dicts(per_obj: list, names: list, device) -> YCBRegistry:
+    vmax = max(d["verts"].shape[0] for d in per_obj)
+    verts_full = np.zeros((len(per_obj), vmax, 3), np.float32)
+    mask = np.zeros((len(per_obj), vmax), np.float32)
+    for i, d in enumerate(per_obj):
+        v = d["verts"]
+        verts_full[i, :v.shape[0]] = v
+        verts_full[i, v.shape[0]:] = v[0]          # padding repeats a real vertex
+        mask[i, :v.shape[0]] = 1.0
+
     def stack(key):
         return torch.as_tensor(np.stack([np.asarray(d[key], np.float32) for d in per_obj]),
                                device=device)
 
     return YCBRegistry(kpt3d=stack("kpt3d"), verts_sampled=stack("verts_sampled"),
-                       com=stack("CoM"), names=tuple(names))
+                       verts_full=torch.as_tensor(verts_full, device=device),
+                       verts_full_mask=torch.as_tensor(mask, device=device),
+                       com=stack("CoM"), diameter=stack("diameter"), shift=stack("shift"),
+                       is_symmetric=torch.as_tensor([n in SYMMETRIC_CLASSES for n in names],
+                                                    device=device),
+                       names=tuple(names))
 
 
 def build_registry_from_models_dir(model_dir: str, device=None) -> YCBRegistry:
@@ -110,7 +139,8 @@ def build_registry_from_models_dir(model_dir: str, device=None) -> YCBRegistry:
         vs_axsym = verts_sampled @ shift[:3, :3].T + shift[:3, 3]
         kpt_axsym = kpt27_from_bbox3d(bbox3d_from_verts(vs_axsym))
         kpt3d = (kpt_axsym - shift[:3, 3]) @ shift[:3, :3]
-        per_obj.append(dict(verts_sampled=verts_sampled, kpt3d=kpt3d, CoM=com))
+        per_obj.append(dict(verts=verts, verts_sampled=verts_sampled, kpt3d=kpt3d, CoM=com,
+                            diameter=get_diameter(verts), shift=shift))
     return _registry_from_dicts(per_obj, names, device)
 
 
@@ -126,7 +156,8 @@ def synthetic_registry(seed: int = 0, verts_per_obj: int = 4000, device=None) ->
         verts = verts / np.maximum(np.linalg.norm(verts / scale, axis=-1, keepdims=True), 1.0)
         vs = verts[farthest_point_sampling(verts, NUM_VERTS_SAMPLED)]
         kpt3d = kpt27_from_bbox3d(bbox3d_from_verts(vs)).astype(np.float32)
-        per_obj.append(dict(verts_sampled=vs, kpt3d=kpt3d, CoM=verts.mean(0)))
+        per_obj.append(dict(verts=verts, verts_sampled=vs, kpt3d=kpt3d, CoM=verts.mean(0),
+                            diameter=get_diameter(verts), shift=np.eye(3, 4, dtype=np.float32)))
     return _registry_from_dicts(per_obj, names, device)
 
 

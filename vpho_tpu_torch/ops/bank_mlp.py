@@ -27,6 +27,12 @@ import torch
 from . import cuda_build
 
 launches = 0
+operations = 0       # the launched kernels' operations (``flops``), which profilers cannot see
+
+
+def flops(R: int, C: int, D: int, n: int, O: int) -> float:
+    """Operations of one call: both layers' multiply-adds."""
+    return 2.0 * R * C * D * n + 2.0 * R * D * O * n
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _N2 = 8          # layer 2's wgmma width: W2 is zero-padded to 8 columns
@@ -80,7 +86,7 @@ def bank_mlp_prepared_plain(pose_feat: torch.Tensor, w: BankWeights, add: torch.
 def bank_mlp_prepared(pose_feat: torch.Tensor, w: BankWeights, add: torch.Tensor,
                       S: int) -> torch.Tensor:
     """pose_feat (B*S, C) bf16; add (B, n, D) f32; w from :func:`prepare` -> (B*S, n, O) f32."""
-    global launches
+    global launches, operations
     if pose_feat.device.type == "cpu":
         return bank_mlp_prepared_plain(pose_feat, w, add, S)
     B, n, D = add.shape
@@ -110,6 +116,7 @@ def bank_mlp_prepared(pose_feat: torch.Tensor, w: BankWeights, add: torch.Tensor
                         w.w2p.data_ptr(), w.b2.data_ptr(), out.data_ptr(),
                         R, S, C, D, O, n, stream), "bank_mlp")
     launches += 1
+    operations += flops(R, C, D, n, O)
     return out
 
 

@@ -24,6 +24,12 @@ import torch
 from . import cuda_build
 
 launches = 0
+operations = 0       # the launched kernels' operations (``flops``), which profilers cannot see
+
+
+def flops(queries: int, V: int) -> float:
+    """Operations of one call: 8 a (query, vertex) pair (the dot product, |y|^2, the compare)."""
+    return 8.0 * queries * V
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
@@ -41,7 +47,7 @@ def min_dist_plain(fp: torch.Tensor, verts: torch.Tensor):
 
 def min_dist_and_idx(fp: torch.Tensor, verts: torch.Tensor):
     """fp (B, N, P, 3) f32; verts (B, V, 3) f32 -> dist (B, N, P) f32, idx (B, N, P) int32."""
-    global launches
+    global launches, operations
     if fp.device.type == "cpu":
         return min_dist_plain(fp, verts)
     if fp.dim() != 4 or fp.shape[-1] != 3 or verts.dim() != 3 or verts.shape[-1] != 3 \
@@ -61,4 +67,5 @@ def min_dist_and_idx(fp: torch.Tensor, verts: torch.Tensor):
     cuda_build.check(fn(fp.data_ptr(), verts.data_ptr(), dist.data_ptr(), idx.data_ptr(),
                         B, N * P, V, stream), "min_dist")
     launches += 1
+    operations += flops(B * N * P, V)
     return dist, idx

@@ -11,6 +11,12 @@ from __future__ import annotations
 import torch
 
 
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for small inner dimensions as a broadcast product and sum, so it stays plain
+    float32 on every device whatever the process's TF32 flags are."""
+    return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
+
+
 def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
     """sqrt(max(x, 0)) with a zero gradient at x <= 0."""
     pos = x > 0
@@ -103,11 +109,39 @@ def matrix_to_rotation_6d(m: torch.Tensor) -> torch.Tensor:
     return m[..., :2, :].reshape(m.shape[:-2] + (6,))
 
 
-def average_quaternion(Q: torch.Tensor, W: torch.Tensor | None = None) -> torch.Tensor:
-    """Weighted quaternion mean over the -2 axis: the dominant eigenvector (eigh) of the
-    weighted outer-product sum, returned with a non-negative real part.
+# The dominant-eigenvector solve inside ``average_quaternion``: "eigh" (``torch.linalg.eigh``,
+# which checks its status on the host on CUDA) or "power" (repeated squaring: batched 4x4
+# matmuls and reductions only).  One choice per process, as in the JAX package
+# (``--quat_mean_impl``); set it with ``set_quat_mean_impl``.
+QUAT_MEAN_IMPL = "eigh"
 
-    Q: (..., N, 4) real-first; W: (..., N) or None.
+
+def set_quat_mean_impl(impl: str) -> None:
+    global QUAT_MEAN_IMPL
+    if impl not in ("eigh", "power"):
+        raise ValueError(f"quat_mean_impl must be eigh|power, got {impl!r}")
+    QUAT_MEAN_IMPL = impl
+
+
+def dominant_eigvec_4x4_power(A: torch.Tensor, squarings: int = 5) -> torch.Tensor:
+    """Dominant eigenvector of PSD (..., 4, 4) matrices by repeated squaring: A^(2^k)
+    collapses every column onto the dominant eigenvector, and the largest-norm column is a
+    safe representative.  Each squaring renormalizes by the max |entry|."""
+    P = A
+    for _ in range(squarings):
+        P = P / (P.abs().amax(dim=(-2, -1), keepdim=True) + 1e-30)
+        P = matmul_f32(P, P)
+    best = (P * P).sum(-2).argmax(-1)                        # largest squared column norm
+    v = torch.gather(P, -1, best[..., None, None].expand(P.shape[:-1] + (1,)))[..., 0]
+    return normalize(v)
+
+
+def average_quaternion(Q: torch.Tensor, W: torch.Tensor | None = None,
+                       impl: str | None = None) -> torch.Tensor:
+    """Weighted quaternion mean over the -2 axis: the dominant eigenvector of the weighted
+    outer-product sum, returned with a non-negative real part.
+
+    Q: (..., N, 4) real-first; W: (..., N) or None.  ``impl`` overrides ``QUAT_MEAN_IMPL``.
     """
     if W is None:
         W = torch.ones_like(Q[..., 0])
@@ -115,7 +149,10 @@ def average_quaternion(Q: torch.Tensor, W: torch.Tensor | None = None) -> torch.
     oriented = torch.where(Q[..., :1] > 0, 1.0, -1.0) * Q
     A = (oriented[..., :, None] * oriented[..., None, :] * W[..., None, None]).sum(-3)
     A = A / weight_sum[..., None]
-    q_avg = torch.linalg.eigh(A)[1][..., -1]
+    if (impl or QUAT_MEAN_IMPL) == "power":
+        q_avg = dominant_eigvec_4x4_power(A)
+    else:
+        q_avg = torch.linalg.eigh(A)[1][..., -1]
     return torch.where(q_avg[..., :1] > 0, 1.0, -1.0) * q_avg
 
 
@@ -134,6 +171,70 @@ def project_points_batched(pt3d: torch.Tensor, cam_intrinsic: torch.Tensor) -> t
     pt2d = torch.bmm(pt3d.reshape(B, -1, 3), cam_intrinsic.transpose(1, 2))
     pt2d = pt2d.reshape(pt3d.shape)
     return pt2d[..., :2] / pt2d[..., 2:]
+
+
+def project_pt3d_to_pt2d(pt3d: torch.Tensor, cam_intrinsic: torch.Tensor) -> torch.Tensor:
+    """pt3d (..., 3); cam_intrinsic (..., 3, 3) -> (..., 2)."""
+    pt2d = matmul_f32(pt3d, cam_intrinsic.transpose(-1, -2))
+    return pt2d[..., :-1] / pt2d[..., -1:]
+
+
+def inverse_project_uvd_to_xyz(uvd: torch.Tensor, cam_intrinsic: torch.Tensor) -> torch.Tensor:
+    """uvd (..., 3); cam_intrinsic (..., 3, 3) -> xyz (..., 3)."""
+    homog = torch.cat([uvd[..., :-1], torch.ones_like(uvd[..., -1:])], dim=-1)
+    return matmul_f32(homog, torch.linalg.inv(cam_intrinsic).transpose(-1, -2)) * uvd[..., -1:]
+
+
+def rigid_align(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Procrustes-align point sets A (..., N, 3) onto B (..., N, 3) with scale (Umeyama).
+    The SVD's singular-vector signs are the library's own; the aligned points are not."""
+    n = A.shape[-2]
+    centroid_A = A.mean(-2, keepdim=True)
+    centroid_B = B.mean(-2, keepdim=True)
+    H = matmul_f32((A - centroid_A).transpose(-1, -2), B - centroid_B) / n
+    U, s, Vt = torch.linalg.svd(H)
+    flip = torch.where(torch.linalg.det(matmul_f32(Vt.transpose(-1, -2), U.transpose(-1, -2)))
+                       < 0, -1.0, 1.0)
+    s = torch.cat([s[..., :2], s[..., 2:] * flip[..., None]], dim=-1)
+    Vt = torch.cat([Vt[..., :2, :], Vt[..., 2:, :] * flip[..., None, None]], dim=-2)
+    R = matmul_f32(Vt.transpose(-1, -2), U.transpose(-1, -2))
+    varP = A.var(-2, unbiased=False).sum(-1)
+    c = s.sum(-1) / varP
+    t = centroid_B - c[..., None, None] * matmul_f32(centroid_A, R.transpose(-1, -2))
+    return c[..., None, None] * matmul_f32(A, R.transpose(-1, -2)) + t
+
+
+def obj_9d_to_mat(obj_9d: torch.Tensor) -> torch.Tensor:
+    """(..., 9) rot6d + translation -> (..., 3, 4)."""
+    return torch.cat([rotation_6d_to_matrix(obj_9d[..., :6]), obj_9d[..., 6:9, None]], dim=-1)
+
+
+def obj_mat_to_9d(obj_rt: torch.Tensor) -> torch.Tensor:
+    return torch.cat([matrix_to_rotation_6d(obj_rt[..., :3, :3]), obj_rt[..., :3, 3]], dim=-1)
+
+
+def matmul_for_rt(T1: torch.Tensor, T2: torch.Tensor) -> torch.Tensor:
+    """Compose (..., 3, 4) rigid transforms: T1 after T2."""
+    r1, t1 = T1[..., :3, :3], T1[..., :3, 3]
+    r2, t2 = T2[..., :3, :3], T2[..., :3, 3]
+    new_t = matmul_f32(r1, t2[..., None])[..., 0] + t1
+    return torch.cat([matmul_f32(r1, r2), new_t[..., None]], dim=-1)
+
+
+def mano_aa_to_6d(mano_params: torch.Tensor) -> torch.Tensor:
+    """(..., 48 + extra) -> (..., 96 + extra): 16 joints axis-angle -> rot6d."""
+    s = mano_params.shape[:-1]
+    aa = mano_params[..., :48].reshape(s + (16, 3))
+    d6 = matrix_to_rotation_6d(axis_angle_to_matrix(aa)).reshape(s + (96,))
+    return torch.cat([d6, mano_params[..., 48:]], dim=-1)
+
+
+def mano_6d_to_aa(mano_6d: torch.Tensor) -> torch.Tensor:
+    """(..., 96 + extra) -> (..., 48 + extra)."""
+    s = mano_6d.shape[:-1]
+    d6 = mano_6d[..., :96].reshape(s + (16, 6))
+    aa = matrix_to_axis_angle(rotation_6d_to_matrix(d6)).reshape(s + (48,))
+    return torch.cat([aa, mano_6d[..., 96:]], dim=-1)
 
 
 def flip_point3d(pt3d: torch.Tensor, is_flip: torch.Tensor) -> torch.Tensor:

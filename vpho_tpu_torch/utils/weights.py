@@ -13,9 +13,13 @@ is this module's own copy of the JAX package's ``_walk_vpho``; the layout conver
   * batch norm scale/bias + mean/var -> weight/bias/running_mean/running_var and a zero
     ``num_batches_tracked``
 MANO, YCB and anchor tables are constants outside the ``state_dict``.
+
+``load_pretrain(model, path, remove_keys)`` is ``--pretrain`` for the JAX package's
+``final_model.pkl`` (those trees pickled as numpy arrays; no jax needed to read it).
 """
 from __future__ import annotations
 
+import pickle
 from typing import Callable, Dict, Tuple
 
 import numpy as np
@@ -163,8 +167,46 @@ class _Converter:
         self.sd[tkey + ".bias"] = self.p(*scope, bname)
 
 
-def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
-    """Flax ``{"params", "batch_stats", "buffers"}`` numpy trees -> torch ``state_dict``."""
+def state_dict_from_jax(variables, skip_missing: bool = False) -> Dict[str, torch.Tensor]:
+    """Flax ``{"params", "batch_stats", "buffers"}`` numpy trees -> torch ``state_dict``.
+    ``skip_missing`` leaves out the modules whose Flax subtree is absent."""
     conv = _Converter(variables)
-    _walk(lambda kind, tkey, *fpath: getattr(conv, kind)(tkey, *fpath))
+
+    def do(kind, tkey, *fpath):
+        try:
+            getattr(conv, kind)(tkey, *fpath)
+        except KeyError:
+            if not skip_missing:
+                raise
+
+    _walk(do)
     return {k: torch.from_numpy(np.array(v)) for k, v in conv.sd.items()}
+
+
+def _drop_prefixes(tree, remove_keys, path=()):
+    """Drop the subtrees whose '/'- or '.'-joined path starts with any prefix."""
+    out = {}
+    for k, v in tree.items():
+        p = path + (k,)
+        if any("/".join(p).startswith(r) or ".".join(p).startswith(r) for r in remove_keys):
+            continue
+        out[k] = _drop_prefixes(v, remove_keys, p) if isinstance(v, dict) else v
+    return out
+
+
+def load_pretrain(model: torch.nn.Module, path: str, remove_keys=()) -> Dict[str, list]:
+    """``--pretrain``: load the JAX package's ``final_model.pkl`` (its Flax variables as
+    numpy trees) into ``model``.  ``remove_keys`` drops Flax subtrees by path prefix before
+    the conversion; with none dropped the load is strict.  Returns the loaded, missing and
+    unexpected torch keys."""
+    if path.endswith((".pth", ".pt")):
+        raise NotImplementedError(
+            "--pretrain with a reference .pth checkpoint is not ported yet (ROADMAP section 1, "
+            "CLI and tooling: torch-side .pth import); pass the JAX package's final_model.pkl")
+    with open(path, "rb") as f:
+        saved = pickle.load(f)
+    variables = {coll: _drop_prefixes(saved[coll], tuple(remove_keys))
+                 for coll in ("params", "batch_stats", "buffers")}
+    sd = state_dict_from_jax(variables, skip_missing=bool(remove_keys))
+    missing, unexpected = model.load_state_dict(sd, strict=not remove_keys)
+    return {"loaded": sorted(sd), "missing": list(missing), "unexpected": list(unexpected)}
