@@ -29,6 +29,19 @@ Phases, one output line each:
               every aggregation choice on one candidate set, K2 held against its plain version
               at the force-selection shape (N = topk_obj^2); the default aggregation timed under
               the eigh and the power quaternion mean
+  9. train    the JAX package's training defaults at full width (f32, bs 64, patch 256,
+              repeat_num 20, adamw, exp schedule, lr 2e-4) through ``Trainer.train_step`` on one
+              fixed batch: 1 warm-up and 5 timed steps, steps/s, frames/s, the forward /
+              backward / optimizer split, peak memory; every loss finite, the last total below
+              the first
+  10. train_f32 one train step at test size (bs 4, patch 64, repeat_num 2) on the card (TF32
+              off) against the port on the CPU: same weights, draws and dropout masks; loss
+              terms, gradients and BN statistics held
+  11. train_entry ``engine.runner.run`` with ``--mode train --max_epochs 1`` (bf16, bs 64, patch
+              256, the blessed sub-eval flags): K1 = 50 and K2 = 2 launches a sub-eval batch,
+              bf16 steps/s, every bf16 loss finite, ``epoch_1.state`` and ``final_model.pkl``;
+              then a resume from ``epoch_1.state`` restores params, BN statistics, optimizer
+              moments and step exactly, and ``--max_epochs 2`` trains the second epoch
 Then the card's ``name, power.limit``, the kernels' JSON line and, last, the result line.
 Any failed check raises, so the script exits non-zero and prints no result.  It needs one
 CUDA device and the checkout it sits in; without either it fails.
@@ -558,6 +571,182 @@ def main() -> int:
     for name in kernels:
         kernels[name]["launches_by_path"] = {"predict": launches[name], "eval": eval_launches[name]}
     kernels["min_dist"]["force_selection_max_abs_err"] = force_err
+
+    # ---- 9. train: the JAX package's training defaults at full width, f32 ---------------
+    from vpho_tpu_torch.engine.trainer import Trainer
+
+    train_dir = os.path.join("output", "chip_smoke_train")
+    train_argv = ["--mode", "train", "--batch_size", "64", "--patch_size", "256",
+                  "--repeat_num", "20", "--output_dir", train_dir]
+    tcfg = get_config(train_argv)
+    check((tcfg.compute_dtype, tcfg.optimizer, tcfg.scheduler, tcfg.base_learning_rate,
+           tcfg.gamma) == ("float32", "adamw", "exp", 2e-4, 0.96), "training defaults changed")
+    del model, ctx, cand, trunk_out, held, recorded, pd, pd_a, agg_out
+    torch.cuda.empty_cache()
+    trainer_t = Trainer(tcfg, dev)
+    trainer_t.init_state(8)
+    tbatch = fixtures.make_batch(trainer_t.ctx, seed=21, batch_size=64, patch_size=256)
+    tgen = torch.Generator(device=dev).manual_seed(22)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, totals, n_timed = [], [], 5
+    for i in range(1 + n_timed):
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        losses = trainer_t.train_step(tbatch, generator=tgen)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t_start)
+        vals = {k: v.item() for k, v in losses.items()}
+        check(all(math.isfinite(v) for v in vals.values()), f"train step {i}: {vals}")
+        totals.append(vals["total_loss"])
+    check(totals[-1] < totals[0], f"train: total loss {totals[0]} -> {totals[-1]}")
+    split = trainer_t.train_timing()
+    timed_s = step_s[1:]
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # one more step counting its operations (forward and backward), one under torch.profiler
+    from vpho_tpu_torch.engine.profiling import flops_of
+
+    step_flops = flops_of(lambda: trainer_t.train_step(tbatch, generator=tgen))[1]["flops"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tprof:
+        tprof_ms = wall(lambda: trainer_t.train_step(tbatch, generator=tgen))
+    tstats = [e for e in tprof.key_averages() if e.self_device_time_total > 0
+              and e.device_type == torch.autograd.DeviceType.CUDA]
+    tbusy_ms = sum(e.self_device_time_total for e in tstats) / 1e3
+    ttop = sorted(tstats, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    trainer_t.train_timing()
+    say(phase="train", batch=64, patch=256, repeat_num=20, dtype="float32",
+        tf32=dict(matmul=torch.backends.cuda.matmul.allow_tf32, cudnn=torch.backends.cudnn.allow_tf32),
+        warmup_s=step_s[0], step_s=timed_s, steps_per_s=n_timed / sum(timed_s),
+        frames_per_s=64 * n_timed / sum(timed_s),
+        split_ms={k[:-2]: sum(v[1:]) / n_timed * 1e3 for k, v in split.items()},
+        peak_mem_gb=train_peak_gb, total_loss=totals, last_losses=vals,
+        params_m=sum(p.numel() for p in trainer_t.model.parameters()) / 1e6,
+        step_gflops=step_flops / 1e9, achieved_tflops=step_flops / (sum(timed_s) / n_timed) / 1e12,
+        profile=dict(wall_ms=tprof_ms, device_busy_ms=tbusy_ms, device_idle_share=1.0 - tbusy_ms / tprof_ms,
+                     launches=sum(e.count for e in tstats),
+                     top=[[e.key[:70], round(e.self_device_time_total / 1e3, 3), e.count] for e in ttop]))
+    del trainer_t, tbatch, losses
+    torch.cuda.empty_cache()
+
+    # ---- 10. train_f32: one small train step on the card against the port on the CPU -----
+    # Same weights, the same score-loss draws and dropout masks (drawn on the CPU, replayed on
+    # the card), TF32 off.  Train-mode BN over a batch of 4 is ill-conditioned in float32 (on
+    # the CPU a 1-ulp change of the input moves backbone gradients by ~2-4%), so the gradient
+    # bars are per module group; the heads after the encoders are well-conditioned.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from vpho_tpu_torch.models.layers import DropoutMasks
+
+    small_t = V.ModelConfig(patch_size=64, repeat_num=2)
+    runs = []
+    g_draw = torch.Generator().manual_seed(23)
+    draws = {"hand": (torch.rand(8, 1, generator=g_draw) * (1 - 1e-5) + 1e-5, torch.randn(8, 96, generator=g_draw)),
+             "obj": (torch.rand(8, 1, generator=g_draw) * (1 - 1e-5) + 1e-5, torch.randn(8, 9, generator=g_draw))}
+    masks = None
+    for d in (cpu, dev):
+        m_t = V.build_model(small_t, seed=24, device=cpu)
+        with torch.no_grad():
+            for den in (m_t.denoiser_hand, m_t.denoiser_obj):    # a non-zero score
+                l2 = den.head.head[2]
+                l2.weight.copy_(torch.randn(l2.weight.shape, generator=torch.Generator().manual_seed(25)) * 0.01)
+        m_t = m_t.to(d)
+        c_t = V.make_context(small_t, device=d)
+        b_t = fixtures.make_batch(c_t, seed=26, batch_size=4, patch_size=64)
+        drop = (DropoutMasks(generator=torch.Generator().manual_seed(27)) if masks is None
+                else DropoutMasks(masks=masks))
+        total, tl = V.forward_train(m_t, c_t, b_t, dropout=drop, draws={
+            k: (a.to(d), b.to(d)) for k, (a, b) in draws.items()})
+        masks = drop.drawn                  # the CPU run's masks, replayed on the card
+        ps = dict(m_t.named_parameters())
+        grads = torch.autograd.grad(total, list(ps.values()), allow_unused=True)
+        runs.append(({k: v.item() for k, v in tl.items()},
+                        {k: (g if g is not None else torch.zeros_like(p)).cpu() for (k, p), g in zip(ps.items(), grads)},
+                        {k: v.cpu() for k, v in m_t.state_dict().items() if "running" in k}))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    (l_c, g_c, s_c), (l_g, g_g, s_g) = runs
+    loss_rel = {k: abs(l_g[k] - l_c[k]) / max(abs(l_c[k]), 1e-12) for k in l_c}
+    # per parameter |g_card - g_cpu| <= rtol |g_cpu| + 1e-4 x the module's largest gradient norm
+    # (the bars of tests/test_torch_port_train.py against JAX; the absolute term covers the conv
+    # biases that feed a train-mode BN, whose exact gradient is zero)
+    heads = ("head_mano", "cross_hand", "cross_obj", "head_physics")
+    group_of = lambda k: k.split(".")[0]
+    scale = {}
+    for k, ref in g_c.items():
+        scale[group_of(k)] = max(scale.get(group_of(k), 0.0), ref.norm().item())
+    grad_rel, bar_used = {}, {}
+    for k, ref in g_c.items():
+        grp = group_of(k)
+        rtol = 1e-3 if grp in heads else 1e-2 if grp.startswith("denoiser") else 0.15
+        err = (g_g[k] - ref).norm().item()
+        grad_rel[grp] = max(grad_rel.get(grp, 0.0), err / max(ref.norm().item(), 1e-30))
+        bar_used[grp] = max(bar_used.get(grp, 0.0),
+                            err / (rtol * ref.norm().item() + 1e-4 * scale[grp]))
+    bn_rel = max(((s_g[k] - s_c[k]).abs().max() / s_c[k].abs().max().clamp_min(1e-12)).item() for k in s_c)
+    say(phase="train_f32", batch=4, patch=64, repeat_num=2, tf32=False, loss_rel_err=loss_rel,
+        grad_rel_norm_err_by_group=grad_rel, grad_bar_used_by_group=bar_used,
+        bn_stats_rel_err=bn_rel)
+    check(max(loss_rel.values()) <= 1e-4, f"train_f32 losses {loss_rel}")
+    for grp, used in bar_used.items():
+        check(used <= 1.0, f"train_f32 gradients {grp}: {used} of the bar")
+    check(bn_rel <= 1e-3, f"train_f32 BN statistics {bn_rel}")
+
+    # ---- 11. train_entry: --mode train through the entry point, bf16 ---------------------
+    import glob
+
+    entry_argv = ["--mode", "train", "--max_epochs", "1", "--compute_dtype", "bfloat16",
+                  "--batch_size", "64", "--patch_size", "256", "--eval_batch_size", "64",
+                  "--sample_num", "100", "--sampling_steps", "50", "--topk_hand", "30",
+                  "--topk_obj", "10", "--viz_freq", "-1", "--output_dir", train_dir]
+    K1.launches = K2.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    tr1 = runner.run(get_config(entry_argv))
+    torch.cuda.synchronize()
+    entry_wall_s = time.perf_counter() - t_start
+    entry_launches = {"bank_mlp": K1.launches, "min_dist": K2.launches}
+    n_sub = len(tr1.last_eval["timing"]["frames"])
+    check(n_sub == 2, f"train_entry sub-eval batches {n_sub}")
+    check(entry_launches == {"bank_mlp": 50 * n_sub, "min_dist": 2 * n_sub},
+          f"train_entry launch counts {entry_launches}")
+    lt = tr1.last_train
+    check(len(lt["losses"]) == 14 and all(math.isfinite(v) for v in lt["losses"].values()),
+          f"train_entry bf16 losses {lt['losses']}")
+    ckpt = os.path.join(tr1.save_dir, "checkpoint", "epoch_1.state")
+    check(os.path.isfile(ckpt) and os.path.isfile(os.path.join(tr1.save_dir, "final_model.pkl")),
+          f"train_entry files in {tr1.save_dir}")
+    check(tr1.step == 8 and tr1.optimizer.count == 8, f"train_entry steps {tr1.step}")
+    # resume: the state restored from epoch_1.state before the first resumed step
+    resume_argv = entry_argv[:2] + ["--max_epochs", "2"] + entry_argv[4:] + ["--checkpoint", ckpt]
+    tr2 = Trainer(get_config(resume_argv), dev)
+    tr2.init_state(8)
+    sd1, sd2 = tr1.model.state_dict(), tr2.model.state_dict()
+    o1, o2 = tr1.optimizer, tr2.optimizer
+    exact = (tr2.start_epoch == 1 and tr2.step == tr1.step and o2.count == o1.count
+             and all(torch.equal(sd1[k], sd2[k]) for k in sd1)
+             and all(torch.equal(a, b) for a, b in zip(o1.mu + o1.nu, o2.mu + o2.nu)))
+    check(exact, "resume from epoch_1.state is not exact")
+    del tr2
+    K1.launches = K2.launches = 0
+    tr3 = runner.run(get_config(resume_argv))
+    check(tr3.step == 16 and os.path.isfile(os.path.join(tr3.save_dir, "checkpoint", "epoch_2.state")),
+          f"resumed run: step {tr3.step}")
+    check(tr3.start_epoch == 1 and K1.launches == 100 and K2.launches == 4,
+          f"resumed run launches {K1.launches}, {K2.launches}")
+    say(phase="train_entry", dtype="bfloat16", batch=64, patch=256, steps=lt["steps"],
+        epoch_s=lt["seconds"], steps_per_s=lt["steps"] / lt["seconds"],
+        frames_per_s=64 * lt["steps"] / lt["seconds"],
+        # device-stream spans of the steps after the first (the first also tunes cuDNN)
+        steady_split_ms={k[:-2]: sum(lt[k][1:]) / (lt["steps"] - 1) * 1e3
+                         for k in ("forward_s", "backward_s", "optimizer_s")},
+        first_step_ms={k[:-2]: lt[k][0] * 1e3 for k in ("forward_s", "backward_s", "optimizer_s")},
+        last_losses=lt["losses"], wall_s=entry_wall_s, sub_eval_batches=n_sub,
+        launches=entry_launches,
+        files=sorted(os.path.relpath(f, tr1.save_dir) for f in glob.glob(os.path.join(tr1.save_dir, "**"), recursive=True) if os.path.isfile(f)),
+        resumed_exactly=exact, resumed_epoch_s=tr3.last_train["seconds"],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    for name in kernels:
+        kernels[name]["launches_by_path"]["train_entry"] = entry_launches[name]
 
     print(card)
     print(json.dumps({"kernels": [kernels["bank_mlp"], kernels["min_dist"]]}))

@@ -51,8 +51,8 @@ def test_eval_path_rescores_a_jax_pkl(runners, tmp_path):
 
 def test_runs_the_port_refuses(runners, tmp_path):
     _, torch_run = runners
-    with pytest.raises(NotImplementedError, match="training"):
-        torch_run(["--mode", "train"] + SMALL)
+    with pytest.raises(NotImplementedError, match="infer_ho3d"):
+        torch_run(["--mode", "train", "--dataset_name", "ho3d"] + SMALL)
     with pytest.raises(NotImplementedError, match="not rebuilt"):
         torch_run(["--mode", "energy"] + SMALL)
     with pytest.raises(NotImplementedError, match="infer_ho3d"):
@@ -60,7 +60,8 @@ def test_runs_the_port_refuses(runners, tmp_path):
     (tmp_path / "dex_ycb_s0_train_data.json").write_text("{}")
     with pytest.raises(NotImplementedError, match="data pipeline"):
         torch_run(["--mode", "eval", "--data_dir", str(tmp_path)] + SMALL)
-    for flags, match in ((["--checkpoint", "run/epoch_3.state"], "orbax"),
+    (tmp_path / "epoch_3.state").mkdir()          # the JAX package's orbax directory
+    for flags, match in ((["--checkpoint", str(tmp_path / "epoch_3.state")], "orbax"),
                          (["--device_preprocess"], "device_preprocess"),
                          (["--num_devices", "2"], "num_devices")):
         with pytest.raises(NotImplementedError, match=match):

@@ -1,5 +1,5 @@
 """The hand-written CUDA kernels (K1 bank-MLP, K2 nearest-vertex search) against their plain
-PyTorch versions on the card.
+PyTorch versions on the card, and one training step on the card.
 
 There is no CPU mode for a CUDA kernel, so every test here needs an NVIDIA GPU and skips
 without one.  This file imports neither jax nor ``vpho_tpu``, so on a machine with a card and
@@ -101,3 +101,36 @@ def test_min_dist_kernel_matches_plain(cuda_device, B, N, V):
     d_ref, i_ref = K2.min_dist_plain(torch.from_numpy(fp), torch.from_numpy(verts))
     np.testing.assert_allclose(d.cpu().numpy(), d_ref.numpy(), rtol=0, atol=1e-5)
     assert_argmin_equivalent(fp, verts, i.cpu().numpy(), i_ref.numpy())
+
+
+def test_train_step_on_the_card(cuda_device, tmp_path):
+    """One training step on the card at test size (``forward_train``, the gradients, the
+    optimizer, as ``Trainer.train_step`` runs them): every loss finite, the parameters with a
+    zero gradient unmoved (a conv bias that feeds a train-mode BN can have an exactly zero
+    one), every other moved unless its gradient is so small (< 1e-6) that Adam's step falls
+    under the parameter's float32 spacing; the BN running statistics moved."""
+    from vpho_tpu_torch.configs.config import get_config
+    from vpho_tpu_torch.data import fixtures
+    from vpho_tpu_torch.engine.trainer import Trainer
+    from vpho_tpu_torch.models import vpho as V
+
+    cfg = get_config(["--mode", "train", "--batch_size", "2", "--patch_size", "64",
+                      "--repeat_num", "2", "--output_dir", str(tmp_path)])
+    trainer = Trainer(cfg, cuda_device)
+    trainer.init_state(8)
+    model = trainer.model
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = fixtures.make_batch(trainer.ctx, seed=0, batch_size=2, patch_size=64)
+    total, losses = V.forward_train(model, trainer.ctx, batch,
+                                    generator=torch.Generator(cuda_device).manual_seed(0))
+    assert len(losses) == 14 and all(bool(torch.isfinite(v)) for v in losses.values())
+    params = trainer.optimizer.params
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, torch.autograd.grad(total, params, allow_unused=True))]
+    assert trainer.optimizer.step(grads)
+    for name, g in zip(trainer.optimizer.names, grads):
+        unmoved = torch.equal(model.state_dict()[name], before[name])
+        assert unmoved if not g.any() else (not unmoved or g.abs().max() < 1e-6), name
+    assert sum(bool(g.any()) for g in grads) >= 0.8 * len(grads)
+    stats = [k for k in before if k.endswith("running_var")]
+    assert all(not torch.equal(model.state_dict()[k], before[k]) for k in stats)

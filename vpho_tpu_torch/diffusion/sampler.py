@@ -9,11 +9,12 @@ floats, so the loop never waits on the device.
 
 The start state ``x0`` is an argument: the caller draws it (``sde.prior_std(T0)`` times a
 standard normal) with its own generator, or hands in the array another implementation drew.
+``score_matching_loss`` (training) takes its draws the same way.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterator, List
+from typing import Callable, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -157,3 +158,30 @@ def ode_sampler(score_fn: ScoreFn, x0: torch.Tensor, sde: SDE, T0: float, num_st
     if denoise:
         x = denoise_step(score_fn, sde, x, num_steps)
     return (torch.stack(traj, dim=1), x) if return_trajectory else x
+
+
+def score_matching_loss(score_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
+                        feat: torch.Tensor, gt_pose: torch.Tensor, sde: SDE, repeat_num: int = 20,
+                        random_t: Optional[torch.Tensor] = None, z: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Denoising score-matching loss, the ``repeat_num`` draws folded into the batch axis of one
+    denoiser call (DEVIATIONS.md D7).  ``score_fn(feat (N, F), x (N, D), t (N, 1))`` returns the
+    score, N = repeat_num * B; row r * B + b is draw r of sample b.
+
+    The draws are inputs: ``random_t`` (N, 1), uniform on [eps, 1), and ``z`` (N, D), standard
+    normal; those not given are drawn from ``generator`` (torch's default when None)."""
+    bs, dim = gt_pose.shape
+    n = repeat_num * bs
+    dev = gt_pose.device
+    gdev = generator.device if generator is not None else dev
+    if random_t is None:
+        u = torch.rand((n, 1), generator=generator, device=gdev).to(dev)
+        random_t = u * (1.0 - sde.eps) + sde.eps
+    if z is None:
+        z = torch.randn((n, dim), generator=generator, device=gdev).to(dev)
+    gt_r = gt_pose.repeat(repeat_num, 1)
+    mu, std = sde.marginal_prob(gt_r, random_t)
+    std = std.reshape(n, 1)
+    est_score = score_fn(feat.repeat(repeat_num, 1), mu + z * std, random_t)
+    per_sample = (std ** 2 * (est_score - (-z / std)) ** 2).sum(-1)
+    return per_sample.mean()

@@ -1,9 +1,11 @@
-"""Mode dispatch: build the eval stream and the Trainer, then run eval / infer /
+"""Mode dispatch: build the streams and the Trainer, then run train / eval / infer /
 infer_candidate, or re-score a dumped prediction pkl (counterpart of
 ``vpho_tpu/engine/runner.py``).
 
-The port runs on the synthetic fixture stream; real DexYCB / HO3D data and training are later
-slices and raise ``NotImplementedError`` rather than fall back to synthetic data.
+The port runs on the synthetic fixture stream: 8 training batches an epoch, each epoch
+followed by a checkpoint, a sub-eval and ``final_model.pkl``.  Real DexYCB / HO3D data, HO3D
+training (its per-epoch ``infer_ho3d``) and HO3D inference are later slices and raise
+``NotImplementedError`` rather than fall back to synthetic data.
 """
 from __future__ import annotations
 
@@ -72,8 +74,10 @@ def run(cfg: Config, device=None):
         raise NotImplementedError(
             "--mode energy is non-functional in the reference "
             "(zhoujun-7/VPHO main.py:14-15) and intentionally not rebuilt")
-    if cfg.mode == "train":
-        raise NotImplementedError("--mode train is not ported yet (ROADMAP section 1, training)")
+    if cfg.mode == "train" and cfg.dataset_name == "ho3d":
+        raise NotImplementedError("--mode train on HO3D runs infer_ho3d (codalab zips) every "
+                                  "--full_evaluation_freq epochs, which is not ported yet "
+                                  "(ROADMAP section 1, with the data pipeline)")
     if cfg.mode == "infer" and cfg.dataset_name == "ho3d":
         raise NotImplementedError("--mode infer on HO3D (infer_ho3d, codalab zips) is not "
                                   "ported yet (ROADMAP section 1, with the data pipeline)")
@@ -88,13 +92,25 @@ def run(cfg: Config, device=None):
                     "reference; use --sample_num to set the eval hypothesis count")
     log.warning("No real DexYCB found under %s: using the synthetic fixture stream",
                 cfg.data_dir)
-    trainer.init_state()
+    steps_per_epoch = 8
+    trainer.init_state(steps_per_epoch if cfg.mode == "train" else None)
 
     def get_eval(full: bool):
         return synthetic_stream(trainer.ctx, cfg, 4 if full else 2, cfg.eval_batch_size,
                                 seed=9999, with_eval_keys=True)
 
-    if cfg.mode == "eval":
+    if cfg.mode == "train":
+        if cfg.start_with_eval:
+            trainer.evaluate(get_eval(False))
+        for epoch in range(trainer.start_epoch, cfg.max_epochs):
+            log.info(f"Epoch {epoch}/{cfg.max_epochs}")
+            trainer.train_one_epoch(epoch, synthetic_stream(
+                trainer.ctx, cfg, steps_per_epoch, cfg.batch_size, seed=100 * epoch),
+                steps_per_epoch)
+            trainer.save_checkpoint(epoch + 1)
+            trainer.evaluate(get_eval(False))
+            trainer.save_model()
+    elif cfg.mode == "eval":
         out = trainer.evaluate(get_eval(cfg.eval_full and cfg.dataset_name != "ho3d"))
         trainer.dump_predictions(out["collector_res"])
     elif cfg.mode == "infer_candidate":

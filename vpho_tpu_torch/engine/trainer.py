@@ -1,16 +1,29 @@
-"""Evaluation engine: the eval half of ``vpho_tpu/engine/trainer.py``.
+"""Training and evaluation engine (counterpart of ``vpho_tpu/engine/trainer.py``).
 
 ``Trainer(cfg, device)`` builds the constants and, in ``init_state``, the model (seeded
-weights, then ``--pretrain``).  ``evaluate`` runs the predict path and the metric suite over an
-eval stream, ``dump_predictions`` writes the prediction pkl and ``infer_candidates`` dumps the
-raw hypothesis sets.  Batches are host (numpy) dicts; a background thread stages the next one
-on the device while the current one runs.  Host keys: ``_valid`` masks padded tail samples
-out of the metrics and the dump, ``_index`` (with ``path_of``) fills the dump's index and path
-columns.  The ODE start state of batch i is ``x0_for(i, batch_size)`` when given, else a draw
-from a ``torch.Generator`` seeded 128 + i on the device.
+weights, then ``--pretrain``), the optimizer when it is given the epoch's step count, and the
+``--checkpoint`` state.
 
-The metrics stay on the device until the report; each batch makes one host transfer, for the
-prediction dump.  Training, orbax checkpoints and multi-device evaluation are later slices.
+Training: ``train_step`` is one forward (``forward_train``, the BN statistics move), backward
+and optimizer update; ``train_one_epoch`` runs it over a stream, its draws and dropout masks
+from a generator seeded 1000 + epoch.  The optimizer is the JAX trainer's optax chain
+(``make_optimizer``): AdamW (decoupled decay 1e-4) or L2-coupled Adam (5e-4), the global-norm
+clip before the decay, ``MultiSteps`` accumulation, and the per-epoch ``exp`` / ``step`` or
+per-step ``cosine`` schedule (``make_lr_schedule``), whose step counts applied updates.
+``save_checkpoint`` writes ``<run>/checkpoint/epoch_N.state`` (the port's own torch payload:
+params, BN statistics, buffers, optimizer state, step) and ``save_model`` the JAX package's
+``final_model.pkl``.
+
+Evaluation: ``evaluate`` runs the predict path and the metric suite over an eval stream,
+``dump_predictions`` writes the prediction pkl and ``infer_candidates`` dumps the raw
+hypothesis sets.  Batches are host (numpy) dicts; a background thread stages the next one on
+the device while the current one runs.  Host keys: ``_valid`` masks padded tail samples out of
+the metrics and the dump, ``_index`` (with ``path_of``) fills the dump's index and path
+columns.  The ODE start state of batch i is ``x0_for(i, batch_size)`` when given, else a draw
+from a ``torch.Generator`` seeded 128 + i on the device.  The metrics stay on the device until
+the report; each batch makes one host transfer, for the prediction dump.
+
+Orbax checkpoints and multi-device runs are later slices.
 """
 from __future__ import annotations
 
@@ -18,9 +31,10 @@ import datetime
 import logging
 import os
 import pickle
+import re
 import sys
 import time
-from typing import Any, Callable, Dict, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +43,7 @@ from ..configs.config import Config
 from ..data.prefetch import DeviceStager, prefetch
 from ..models import anchor as anchor_lib
 from ..models import vpho as V
+from ..models.layers import DropoutMasks
 from ..utils import transforms as T
 from ..utils.platform import resolve_device
 from . import viz
@@ -36,6 +51,148 @@ from .profiling import flops_of, param_count, trace
 from .tester import TesterHand, TesterObject
 
 X0Fn = Callable[[int, int], torch.Tensor]
+_F32 = np.float32
+
+
+def make_lr_schedule(cfg: Config, steps_per_epoch: int) -> Callable[[int], float]:
+    """step -> learning rate, in float32 arithmetic as the JAX package's schedules.  ``exp``
+    and ``step`` decay per epoch of ``steps_per_epoch`` steps; ``cosine`` is optax's
+    ``warmup_cosine_decay_schedule`` (from base/25 up to base over the first 10% of the steps,
+    then a cosine down to base/1e4).  The step is the count of applied updates."""
+    base = _F32(cfg.base_learning_rate)
+    if cfg.scheduler == "exp":
+        return lambda step: float(base * _F32(cfg.gamma) ** _F32(step // steps_per_epoch))
+    if cfg.scheduler == "step":
+        return lambda step: float(
+            base * _F32(cfg.gamma) ** _F32(step // steps_per_epoch // cfg.lr_step))
+    if cfg.scheduler == "cosine":
+        total = cfg.max_epochs * steps_per_epoch
+        warm = max(int(total * 0.1), 1)
+        if total - warm <= 0:
+            raise ValueError(f"cosine schedule: {total} steps leave no decay after a "
+                             f"{warm}-step warm-up")
+        init, end = base / _F32(25.0), base / _F32(1e4)
+        alpha = end / base
+
+        def sched(step: int) -> float:
+            if step < warm:
+                frac = _F32(1.0) - _F32(min(max(step, 0), warm)) / _F32(warm)
+                return float((init - base) * frac + base)
+            count = _F32(min(step - warm, total - warm))
+            cosine = _F32(0.5) * (_F32(1.0) + np.cos(_F32(np.pi) * count / _F32(total - warm)))
+            return float(base * ((_F32(1.0) - alpha) * cosine + alpha))
+
+        return sched
+    raise ValueError(cfg.scheduler)
+
+
+class Optimizer:
+    """The JAX trainer's optax chain over a model's parameters, updated in place:
+
+      adamw: [clip_by_global_norm] -> scale_by_adam -> add_decayed_weights(1e-4) -> -lr
+      adam:  [clip_by_global_norm] -> add_decayed_weights(5e-4) -> scale_by_adam -> -lr
+             (L2-coupled, as ``torch.optim.Adam(weight_decay=5e-4)``)
+
+    b1 0.9, b2 0.999, eps 1e-8, every parameter decayed.  With ``every`` > 1 it is
+    ``optax.MultiSteps``: the running mean of ``every`` gradients is applied on every
+    ``every``-th call and the calls between leave the parameters as they are.  ``count``
+    counts applied updates; it sets the bias corrections and the schedule's step."""
+
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def __init__(self, params: Dict[str, torch.Tensor], kind: str,
+                 schedule: Callable[[int], float], clip: float = -1.0, every: int = 1):
+        if kind not in ("adamw", "adam"):
+            raise ValueError(kind)
+        self.names = list(params)
+        self.params = [params[k] for k in self.names]
+        self.kind, self.schedule, self.clip, self.every = kind, schedule, clip, every
+        zeros = lambda: [torch.zeros_like(p) for p in self.params]
+        self.mu, self.nu = zeros(), zeros()
+        self.acc = zeros() if every > 1 else None
+        self.count = 0
+        self.mini_step = 0
+
+    @torch.no_grad()
+    def updates(self, grads: Sequence[torch.Tensor]) -> Optional[List[torch.Tensor]]:
+        """optax's ``update``: what to add to the parameters, or None between accumulation
+        boundaries."""
+        g = list(grads)
+        if self.acc is not None:
+            step = torch._foreach_sub(g, self.acc)
+            torch._foreach_div_(step, float(self.mini_step + 1))
+            torch._foreach_add_(self.acc, step)
+            self.mini_step += 1
+            if self.mini_step < self.every:
+                return None
+            g, self.acc, self.mini_step = self.acc, [torch.zeros_like(a) for a in self.acc], 0
+        if self.clip > 0:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g))).item()
+            if not norm < self.clip:
+                g = torch._foreach_div(g, norm)
+                torch._foreach_mul_(g, self.clip)
+        if self.kind == "adam":
+            g = torch._foreach_add(g, self.params, alpha=5e-4)
+        torch._foreach_mul_(self.mu, self.b1)
+        torch._foreach_add_(self.mu, g, alpha=1.0 - self.b1)
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_add_(self.nu, torch._foreach_mul(g, g), alpha=1.0 - self.b2)
+        self.count += 1
+        # bias corrections in float32, as optax computes them
+        bc1 = float(_F32(1.0) - _F32(self.b1) ** _F32(self.count))
+        bc2 = float(_F32(1.0) - _F32(self.b2) ** _F32(self.count))
+        denom = torch._foreach_div(self.nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        u = torch._foreach_div(self.mu, bc1)
+        torch._foreach_div_(u, denom)
+        if self.kind == "adamw":
+            torch._foreach_add_(u, self.params, alpha=1e-4)
+        torch._foreach_mul_(u, -self.schedule(self.count - 1))
+        return u
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> bool:
+        """Apply one call's update; returns whether the parameters moved."""
+        u = self.updates(grads)
+        if u is not None:
+            torch._foreach_add_(self.params, u)
+        return u is not None
+
+    def state_dict(self) -> Dict[str, Any]:
+        named = lambda ts: None if ts is None else dict(zip(self.names, ts))
+        return {"mu": named(self.mu), "nu": named(self.nu), "acc": named(self.acc),
+                "count": self.count, "mini_step": self.mini_step}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        for key in ("mu", "nu", "acc"):
+            mine, saved = getattr(self, key), state[key]
+            if (mine is None) != (saved is None):
+                raise ValueError(f"optimizer state {key}: saved with another "
+                                 f"--gradient_accumulation_steps")
+            for name, t in zip(self.names, mine or ()):
+                t.copy_(saved[name])
+        self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
+
+
+def make_optimizer(cfg: Config, params: Dict[str, torch.Tensor],
+                   steps_per_epoch: int) -> Optimizer:
+    """``--optimizer`` over ``params`` with ``--gradient_clip`` and
+    ``--gradient_accumulation_steps``, on ``make_lr_schedule``'s schedule."""
+    return Optimizer(params, cfg.optimizer, make_lr_schedule(cfg, steps_per_epoch),
+                     clip=cfg.gradient_clip, every=max(cfg.gradient_accumulation_steps, 1))
+
+
+def _split_state(model: torch.nn.Module) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The model's state_dict as the JAX package's three collections."""
+    params = {k for k, _ in model.named_parameters()}
+    out = {"params": {}, "batch_stats": {}, "buffers": {}}
+    for k, v in model.state_dict().items():
+        coll = "params" if k in params else "batch_stats" if k.endswith(
+            ("running_mean", "running_var", "num_batches_tracked")) else "buffers"
+        out[coll][k] = v
+    return out
 
 
 def setup_logger(save_dir: str, name: str = "vpho_torch") -> logging.Logger:
@@ -127,20 +284,22 @@ class _BatchClock:
 
 
 class Trainer:
-    """Evaluation / inference runner (the eval half of the JAX package's ``Trainer``)."""
+    """Train / eval / infer runner (the JAX package's ``Trainer``)."""
 
     def __init__(self, cfg: Config, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         if cfg.num_devices > 1:
             raise NotImplementedError("--num_devices > 1 is not ported yet (ROADMAP section 1, "
-                                      "training: multi-GPU via torch DDP)")
+                                      "multi-GPU training via torch DDP)")
         if cfg.device_preprocess:
             raise NotImplementedError("--device_preprocess is not ported yet (ROADMAP section 1, "
                                       "data pipeline: the GPU preprocess)")
-        if cfg.checkpoint:
-            raise NotImplementedError("--checkpoint (orbax epoch_N.state) is not ported yet "
-                                      "(ROADMAP section 1, training: checkpoints with resume)")
+        if cfg.checkpoint and os.path.isdir(cfg.checkpoint):
+            raise NotImplementedError(
+                f"--checkpoint {cfg.checkpoint}: an orbax checkpoint directory of the JAX "
+                f"package; reading orbax is not ported (ROADMAP section 1, CLI and tooling). "
+                f"The port resumes from its own epoch_N.state files")
         T.set_quat_mean_impl(cfg.quat_mean_impl)
         stamp = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
         self.save_dir = os.path.join(cfg.output_dir,
@@ -149,15 +308,26 @@ class Trainer:
         self.ctx = V.make_context(cfg.to_model_config(), cfg.mano_root or None,
                                   cfg.models_dir or None, device=self.device)
         self.tester_hand_keys = ("regression", "one_candidate", "agg_candidate")
+        self.start_epoch = 0
+        if cfg.checkpoint:
+            m = re.search(r"epoch_(\d+)\.state", cfg.checkpoint)
+            if m:
+                self.start_epoch = int(m.group(1))
         self.model: Optional[V.VPHONet] = None
+        self.optimizer: Optional[Optimizer] = None
+        self.step = 0                                       # train_step calls so far
+        self._clock = _BatchClock(self.device)
+        self._train_marks: List[tuple] = []
+        self.last_train: Optional[Dict[str, Any]] = None   # the latest epoch's timing
         self._trace_done = False
         self._told_no_jpg = False
         self.last_eval: Optional[Dict[str, Any]] = None     # the latest evaluate()'s output
 
     # -- weights -----------------------------------------------------------------------
 
-    def init_state(self):
-        """The model with seeded weights (``--random_seed``, else 206), then ``--pretrain``."""
+    def init_state(self, steps_per_epoch: Optional[int] = None):
+        """The model with seeded weights (``--random_seed``, else 206), then ``--pretrain``;
+        with ``steps_per_epoch`` (training) also the optimizer; then ``--checkpoint``."""
         cfg = self.cfg
         self.model = V.build_model(cfg.to_model_config(), seed=cfg.random_seed or 206,
                                    device=self.device,
@@ -175,6 +345,99 @@ class Trainer:
             self.logger.info(f"Loaded pretrain {cfg.pretrain}: {len(rep['loaded'])} tensors, "
                              f"{len(rep['missing'])} missing")
         self.logger.info(f"Model params: {param_count(self.model) / 1e6:.2f}M")
+        if steps_per_epoch is not None:
+            self.optimizer = make_optimizer(cfg, dict(self.model.named_parameters()),
+                                            steps_per_epoch)
+        if cfg.checkpoint:
+            self.load_checkpoint(cfg.checkpoint)
+
+    def save_checkpoint(self, epoch: int) -> str:
+        """``<run>/checkpoint/epoch_N.state``: params, BN statistics, buffers, optimizer state
+        and step."""
+        path = os.path.join(self.save_dir, "checkpoint", f"epoch_{epoch}.state")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        opt = self.optimizer.state_dict() if self.optimizer is not None else None
+        torch.save({**_split_state(self.model), "opt_state": opt, "step": self.step}, path)
+        self.logger.info(f"Saved checkpoint: {path}")
+        return path
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore a ``save_checkpoint`` file; the optimizer state only when training."""
+        payload = torch.load(path, map_location=self.device, weights_only=True)
+        self.model.load_state_dict({**payload["params"], **payload["batch_stats"],
+                                    **payload["buffers"]}, strict=True)
+        if self.optimizer is not None:
+            if payload["opt_state"] is None:
+                raise ValueError(f"{path} holds no optimizer state")
+            self.optimizer.load_state_dict(payload["opt_state"])
+        self.step = int(payload["step"])
+        self.logger.info(f"Loaded checkpoint: {path}")
+
+    def save_model(self) -> str:
+        """``<run>/final_model.pkl`` in the JAX package's layout (its Flax trees as numpy)."""
+        from ..utils.weights import save_final_model
+
+        path = os.path.join(self.save_dir, "final_model.pkl")
+        save_final_model(self.model, path)
+        self.logger.info(f"Saved final model: {path}")
+        return path
+
+    # -- training ----------------------------------------------------------------------
+
+    def train_step(self, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[V.Draws] = None,
+                   dropout: Optional[DropoutMasks] = None) -> Dict[str, torch.Tensor]:
+        """One step on a device batch: ``forward_train`` (the BN statistics move), the
+        gradients of the total loss, the optimizer.  Draws and dropout masks as
+        ``forward_train`` takes them.  Returns the weighted losses, detached."""
+        params = self.optimizer.params
+        m0 = self._clock.mark()
+        total, losses = V.forward_train(self.model, self.ctx, batch, draws=draws,
+                                        dropout=dropout, generator=generator)
+        m1 = self._clock.mark()
+        grads = torch.autograd.grad(total, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        m2 = self._clock.mark()
+        self.optimizer.step(grads)
+        self._train_marks.append((m0, m1, m2, self._clock.mark()))
+        self.step += 1
+        return {k: v.detach() for k, v in losses.items()}
+
+    def train_timing(self) -> Dict[str, List[float]]:
+        """Seconds of forward, backward and optimizer per ``train_step`` since the last call
+        (device-stream spans on a GPU)."""
+        marks, self._train_marks = self._train_marks, []
+        sec = self._clock.seconds
+        return {"forward_s": [sec(a, b) for a, b, _, _ in marks],
+                "backward_s": [sec(b, c) for _, b, c, _ in marks],
+                "optimizer_s": [sec(c, d) for _, _, c, d in marks]}
+
+    def train_one_epoch(self, epoch: int, batches: Iterable[Dict[str, Any]],
+                        steps_per_epoch: int) -> Dict[str, torch.Tensor]:
+        """``train_step`` over a host stream, logging the losses every ``--print_freq`` steps.
+        Returns the last step's losses; ``last_train`` keeps the epoch's time, per-step split
+        and last losses (as floats)."""
+        gen = torch.Generator(device=self.device).manual_seed(1000 + epoch)
+        t0 = time.perf_counter()
+        last: Dict[str, torch.Tensor] = {}
+        for i, (b, _, _) in enumerate(self._staged(batches)):
+            last = self.train_step(b, generator=gen)
+            if i % max(self.cfg.print_freq, 1) == 0:
+                vals = torch.stack([v.float() for v in last.values()]).cpu().tolist()
+                self.logger.info(f"[{i:04d}/{steps_per_epoch}] " + " ".join(
+                    f"{k.replace('_loss', '')}:{v:.2e}" for k, v in zip(last, vals)))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        seconds = time.perf_counter() - t0
+        timing = self.train_timing()
+        split = {k: 1e3 * sum(v) / max(len(v), 1) for k, v in timing.items()}
+        losses = dict(zip(last, torch.stack([v.float() for v in last.values()]).cpu().tolist()))
+        self.last_train = {"seconds": seconds, "steps": len(timing["forward_s"]),
+                           "losses": losses, **timing}
+        self.logger.info(f"Epoch {epoch} done in {seconds:.1f}s (a step: "
+                         + ", ".join(f"{k[:-2]} {v:.1f} ms" for k, v in split.items()) + ")")
+        return last
 
     # -- loops -------------------------------------------------------------------------
 

@@ -3,12 +3,13 @@ of ``vpho_tpu/models/heads.py``)."""
 from __future__ import annotations
 
 import math
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
 
 from ..utils import transforms as T
-from .layers import Conv2d, TransformerEncoderLayer, nerf_embed, sinusoid_table
+from .layers import Conv2d, DropoutMasks, TransformerEncoderLayer, nerf_embed, sinusoid_table
 from .ycb import YCBRegistry
 
 
@@ -27,6 +28,21 @@ class HeadMano(nn.Module):
         pose6d = self.fc_pose(h).reshape(x.shape[0], 16, 6)
         pose_aa = T.matrix_to_axis_angle(T.rotation_6d_to_matrix(pose6d)).reshape(x.shape[0], 48)
         return pose_aa, self.fc_shape(h)
+
+
+def mano_losses(pd_pose, pd_shape, pd_vert, pd_joint, gt_pose, gt_shape, gt_vert, gt_joint,
+                is_right) -> Dict[str, torch.Tensor]:
+    """Vertex and joint MSE, the pose loss in rot6d space, and the shape loss over right hands
+    only, rescaled by the right-hand count over the batch (as the reference does)."""
+    right = is_right.to(pd_shape.dtype)[:, None]
+    n_right = torch.clamp_min(right.sum(), 1.0)
+    shape_mse = (((pd_shape - gt_shape) ** 2) * right).sum() / (n_right * pd_shape.shape[-1])
+    return {
+        "vert_loss": torch.mean((pd_vert - gt_vert) ** 2),
+        "joint_loss": torch.mean((pd_joint - gt_joint) ** 2),
+        "mano_pose_loss": torch.mean((T.mano_aa_to_6d(pd_pose) - T.mano_aa_to_6d(gt_pose)) ** 2),
+        "mano_shape_loss": shape_mse / pd_shape.shape[0] * n_right,
+    }
 
 
 def object_points(registry: YCBRegistry, obj_ids: torch.Tensor, data_name: str) -> torch.Tensor:
@@ -73,7 +89,9 @@ class CrossModule(nn.Module):
     The (B, 256, 8, 8) encoder maps are 3x3-conv projected and grouped channel-major into 32
     tokens each; a 1-layer post-norm transformer mixes [hand(32) | obj(32) | gravity(1)].
     ``attention_axis`` "tokens" attends over the 65 tokens (DEVIATIONS.md D1); "batch" replays
-    the reference's sequence-first feed, which attends across samples.
+    the reference's sequence-first feed, which attends across samples.  In train mode the
+    tokens pass a dropout after the positional table, then the layer's four (masks from
+    ``dropout``, torch's default generator when None).
     """
 
     def __init__(self, in_ch: int = 256, hid_dim: int = 512, num_force: int = 32,
@@ -90,7 +108,7 @@ class CrossModule(nn.Module):
         self.attn.layers = nn.ModuleList([TransformerEncoderLayer(hid_dim, 2,
                                                                   compute_dtype=compute_dtype)])
 
-    def forward(self, x_hand, x_obj, gravity):
+    def forward(self, x_hand, x_obj, gravity, dropout: Optional[DropoutMasks] = None):
         B = x_hand.shape[0]
         tok_h = self.proj_hand(x_hand).reshape(B, self.num_force, self.hid_dim)
         tok_o = self.proj_obj(x_obj).reshape(B, self.num_force, self.hid_dim)
@@ -99,12 +117,16 @@ class CrossModule(nn.Module):
         g = self.gravity_proj(nerf_embed(gravity, multires=10))
         x = torch.cat([tok_h.float(), tok_o.float(), g], dim=1)             # (B, 65, hid)
         layer = self.attn.layers[0]
+        if self.training and dropout is None:
+            dropout = DropoutMasks()
         if self.attention_axis == "batch":
             x = x + sinusoid_table(B, self.hid_dim, x.device)[:, None]
-            x = layer(x.transpose(0, 1)).transpose(0, 1)
+            x = dropout(x) if self.training else x
+            x = layer(x.transpose(0, 1), dropout).transpose(0, 1)
         else:
             x = x + sinusoid_table(x.shape[1], self.hid_dim, x.device)[None]
-            x = layer(x)
+            x = dropout(x) if self.training else x
+            x = layer(x, dropout)
         x = x.float()
         return x[:, :self.num_force], x[:, self.num_force:2 * self.num_force], x[:, 2 * self.num_force:]
 
@@ -144,3 +166,26 @@ class HeadPhysics(nn.Module):
         com = self.fc_CoM(x_obj)
         return {"force_local": local_force_from_scale_weight(scale, weight), "scale": scale,
                 "weight": weight, "CoM": com}
+
+
+def physics_losses(gt_force_point, pd_force_global, gt_com, pd_com, gt_force_local,
+                   pd_force_local, gt_gravity, is_grasped) -> Dict[str, torch.Tensor]:
+    """Force balance, gravity alignment, torque balance, supervised local force and CoM
+    losses.  gt_gravity (B, 1, 3); is_grasped (B,); pd_com (B, 32, 3).  |x|^2 is written as
+    sum(x^2): the gradient of a norm is NaN at exactly 0."""
+    grasp = is_grasped.to(pd_force_global.dtype)
+    total = pd_force_global.sum(1, keepdim=True)                        # (B, 1, 3)
+    resultant = total + gt_gravity
+    force_loss = torch.mean((resultant ** 2).sum(-1)[:, 0] * grasp ** 2)
+    cos_proj = (total * gt_gravity).sum(-1)[:, 0]
+    gravity_loss = torch.mean(((cos_proj + 1.0) * grasp) ** 2)
+    arm = gt_force_point - gt_com                                       # (B, 32, 3)
+    torque = torch.linalg.cross(arm, pd_force_global, dim=-1).sum(1)
+    torque_loss = torch.mean((torque ** 2).sum(-1) * grasp ** 2)
+    return {
+        "force_loss": force_loss,
+        "gravity_loss": gravity_loss,
+        "torque_loss": torque_loss,
+        "supervised_loss": torch.mean((pd_force_local - gt_force_local) ** 2),
+        "CoM_loss": torch.mean((pd_com - gt_com.expand(pd_com.shape)) ** 2),
+    }

@@ -5,10 +5,14 @@ stay float32 and every conv / linear casts its input and weights to the compute 
 Batch norm always normalizes in float32 (as Flax does) and returns the input's dtype.
 Attribute names follow the reference torch modules, so ``state_dict`` keys match the
 reference checkpoints.
+
+Dropout (p = 0.1, the cross modules' only random op) is active under ``train()`` and takes its
+keep masks from a ``DropoutMasks`` source, so that they are an input like every other draw.
 """
 from __future__ import annotations
 
 import math
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -53,12 +57,76 @@ class Linear(nn.Linear):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """torch defaults (eps 1e-5), normalized in float32, returned in the input dtype."""
+    """eps 1e-5, normalized in float32, returned in the input dtype.
+
+    In train mode it follows Flax's ``nn.BatchNorm(momentum=0.9)``, not torch's: it normalizes
+    with the biased batch variance and moves the running statistics to
+    ``0.9 * old + 0.1 * batch`` with that same biased variance (torch would store the unbiased
+    one).  ``num_batches_tracked`` stays untouched, as Flax keeps no such counter."""
 
     def forward(self, x):
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
-                         self.bias, self.training, self.momentum, self.eps)
+        x32 = x.float()
+        if not self.training:
+            y = F.batch_norm(x32, self.running_mean, self.running_var, self.weight, self.bias,
+                             False, 0.0, self.eps)
+            return y.to(x.dtype)
+        y = F.batch_norm(x32, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x32, dim=(0, 2, 3), correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
         return y.to(x.dtype)
+
+
+def joints_mse_loss(pd_hm: torch.Tensor, gt_hm: torch.Tensor) -> torch.Tensor:
+    """Plain MSE over heatmaps."""
+    return torch.mean((pd_hm - gt_hm) ** 2)
+
+
+class DropoutMasks:
+    """The keep masks of one forward's dropout sites, handed out in call order.
+
+    Each site asks for a mask of its shape.  The masks come from ``masks`` when given (e.g.
+    the draws of another implementation, recorded in the same call order), else from
+    ``generator`` (torch's default generator when None); every mask handed out is kept in
+    ``drawn``, so a run can be replayed elsewhere.  The two forms are Flax's: ``__call__`` is
+    ``nn.Dropout`` (kept values divided by the keep rate, the rest exactly 0) and
+    ``attention`` the attention-weight dropout of ``MultiHeadDotProductAttention`` (one
+    (q, k) mask shared by the batch and the heads, applied as a multiplier)."""
+
+    def __init__(self, rate: float = 0.1, masks: Optional[Sequence[torch.Tensor]] = None,
+                 generator: Optional[torch.Generator] = None):
+        self.keep = 1.0 - rate
+        self.given = None if masks is None else list(masks)
+        self.generator = generator
+        self.drawn: List[torch.Tensor] = []
+
+    def mask(self, shape, device) -> torch.Tensor:
+        shape = tuple(shape)
+        if self.given is not None:
+            if len(self.drawn) >= len(self.given):
+                raise ValueError(f"dropout: {len(self.given)} masks given, site "
+                                 f"{len(self.drawn) + 1} asks for another")
+            m = torch.as_tensor(self.given[len(self.drawn)], device=device).bool()
+            if tuple(m.shape) != shape:
+                raise ValueError(f"dropout site {len(self.drawn) + 1}: mask {tuple(m.shape)}, "
+                                 f"site {shape}")
+        else:
+            gen = self.generator
+            m = torch.rand(shape, generator=gen,
+                           device=gen.device if gen is not None else device) < self.keep
+            m = m.to(device)
+        self.drawn.append(m)
+        return m
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(self.mask(x.shape, x.device), x / self.keep, torch.zeros_like(x))
+
+    def attention(self, w: torch.Tensor) -> torch.Tensor:
+        """w (B, heads, q, k) softmax weights."""
+        m = self.mask((1, 1) + tuple(w.shape[-2:]), w.device)
+        return w * (m.to(w.dtype) / self.keep)
 
 
 class Residual(nn.Module):
@@ -164,20 +232,25 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = Linear(d_model, d_model, compute_dtype=compute_dtype)
 
-    def forward(self, x):
+    def forward(self, x, dropout: Optional[DropoutMasks] = None):
+        """``dropout`` drops attention weights (``DropoutMasks.attention``) in train mode."""
         B, L, d = x.shape
         hd = d // self.n_heads
         qkv = F.linear(*_cast(self.compute_dtype, x, self.in_proj_weight, self.in_proj_bias))
         q, k, v = qkv.reshape(B, L, 3, self.n_heads, hd).unbind(2)
         q = q / math.sqrt(hd)
         w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        if dropout is not None:
+            w = dropout.attention(w)
         out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, L, d)
         return self.out_proj(out)
 
 
 class TransformerEncoderLayer(nn.Module):
     """Post-norm encoder layer (d_ff 2048, ReLU), LayerNorm eps 1e-6 as in the JAX package.
-    Dropout is inactive at inference and not modelled."""
+    In train mode dropout (p 0.1) hits, in this order, the attention weights, the attention
+    output, the FFN's hidden layer and the FFN output; the masks come from ``dropout`` (a
+    ``DropoutMasks``, torch's default generator when None)."""
 
     def __init__(self, d_model: int = 512, n_heads: int = 2, d_ff: int = 2048,
                  compute_dtype=None):
@@ -188,6 +261,11 @@ class TransformerEncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(d_model, eps=1e-6)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-6)
 
-    def forward(self, x):
-        x = self.norm1((x + self.self_attn(x)).float())
-        return self.norm2((x + self.linear2(torch.relu(self.linear1(x)))).float())
+    def forward(self, x, dropout: Optional[DropoutMasks] = None):
+        if not self.training:
+            x = self.norm1((x + self.self_attn(x)).float())
+            return self.norm2((x + self.linear2(torch.relu(self.linear1(x)))).float())
+        drop = dropout if dropout is not None else DropoutMasks()
+        x = self.norm1((x + drop(self.self_attn(x, drop))).float())
+        ff = self.linear2(drop(torch.relu(self.linear1(x))))
+        return self.norm2((x + drop(ff)).float())

@@ -7,6 +7,8 @@
     the config and the device.
   * ``forward_predict`` = ``forward_candidates`` (trunk -> one 105-d probability-flow ODE over
     B*S hypotheses -> MANO FK) + ``hoi_aggregate``.
+  * ``forward_train``: the trunk in train mode and the weighted loss dict of one training step
+    (score matching of both denoisers, heatmaps, MANO regression, physics).
 
 The public layouts are the JAX package's: ``rgb`` enters as NHWC (B, H, W, 3) and heatmaps
 leave as (B, J, H, W); inside, feature maps are NCHW.
@@ -15,22 +17,23 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
-from ..diffusion.sampler import ode_sampler
+from ..diffusion.sampler import ode_sampler, score_matching_loss
 from ..diffusion.sde import SDE, init_sde
 from ..ops.image import resample_rectilinear, resize_bilinear, roi_align
 from ..utils import transforms as T
+from ..utils.hand import get_joint_aligned_with_ho3d
 from ..utils.platform import resolve_device
 from . import aggregation as agg
 from . import anchor as anchor_lib
 from . import heads
 from .backbone import FPNBackbone
 from .denoiser import Denoiser
-from .layers import Encoder, HeadHeatmap, MultiheadAttention
+from .layers import DropoutMasks, Encoder, HeadHeatmap, MultiheadAttention, joints_mse_loss
 from .mano import MANOModel, hand_verts_meters, load_mano
 from .ycb import YCBRegistry, load_registry
 
@@ -39,12 +42,13 @@ _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The architecture and predict knobs of the JAX ``ModelConfig``."""
+    """The architecture, predict and loss knobs of the JAX ``ModelConfig``."""
 
     roi_size: int = 32
     heatmap_size: int = 64
     patch_size: int = 256
     sde_mode: str = "ve"
+    repeat_num: int = 20
     sampling_steps: int = 50
     sample_T0: float = 0.65
     sample_num: int = 50
@@ -58,6 +62,20 @@ class ModelConfig:
     do_weighted_average: bool = True
     do_physics_selection: bool = True
     use_regression_as_candidate: bool = True
+    # loss weights (the reference's argparse defaults)
+    weight_diff_hand_loss: float = 1.0
+    weight_diff_obj_loss: float = 1.0
+    weight_hm_hand_loss: float = 1e3
+    weight_hm_obj_loss: float = 1e3
+    weight_vert_loss: float = 1e4
+    weight_joint_loss: float = 1e4
+    weight_mano_pose_loss: float = 10.0
+    weight_mano_shape_loss: float = 1.0
+    weight_force_loss: float = 1.0
+    weight_gravity_loss: float = 1.0
+    weight_torque_loss: float = 30.0
+    weight_supervised_loss: float = 10.0
+    weight_CoM_loss: float = 1e2
 
 
 class VPHOContext(NamedTuple):
@@ -113,9 +131,11 @@ class VPHONet(nn.Module):
         ys = ((coords[None] * rel[:, 1, None] + 1.0) * S - 1.0) / 2.0
         return resample_rectilinear(hm, xs, ys)
 
-    def trunk(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def trunk(self, data: Dict[str, torch.Tensor],
+              dropout: Optional[DropoutMasks] = None) -> Dict[str, torch.Tensor]:
         """data: rgb (B, H, W, 3) normalized; bbox_* (B, 4) crop coords; is_right (B,) bool;
-        gravity (B, 1, 3); obj_CoM (B, 1, 3)."""
+        gravity (B, 1, 3); obj_CoM (B, 1, 3).  In train mode the cross modules' dropout masks
+        come from ``dropout`` (5 per module, ``cross_hand``'s first)."""
         rgb = data["rgb"].permute(0, 3, 1, 2)
         hand_feat, obj_feat = self.feature_extractor(rgb)
         rs = self.roi_size
@@ -145,8 +165,9 @@ class VPHONet(nn.Module):
         pd_mano_pose, pd_mano_shape = self.head_mano(encoding_hand)
         gravity_f = T.flip_point3d(data["gravity"], ~data["is_right"])
         obj_com_f = T.flip_point3d(data["obj_CoM"], ~data["is_right"])
-        enc_phy_hand = self.cross_hand(enc_hand_1, enc_obj_1, gravity_f)[0]
-        enc_phy_obj = self.cross_obj(enc_hand_1, enc_obj_1, gravity_f)[1]
+        # each cross module learns from its own branch only: the other enters without gradient
+        enc_phy_hand = self.cross_hand(enc_hand_1, enc_obj_1.detach(), gravity_f, dropout)[0]
+        enc_phy_obj = self.cross_obj(enc_hand_1.detach(), enc_obj_1, gravity_f, dropout)[1]
         return {
             "encoding_hand": encoding_hand,
             "encoding_obj": encoding_obj,
@@ -203,6 +224,72 @@ def init_vpho_weights(model: VPHONet, generator: torch.Generator) -> VPHONet:
             init.zeros_(l2.weight)
             init.zeros_(l2.bias)
     return model
+
+
+Draws = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def forward_train(model: VPHONet, ctx: VPHOContext, batch: Dict[str, torch.Tensor],
+                  draws: Optional[Draws] = None, dropout: Optional[DropoutMasks] = None,
+                  generator: Optional[torch.Generator] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One training forward: ``(total_loss, weighted loss dict)``, the dict also holding
+    ``total_loss``.  The trunk runs in train mode (batch statistics; the running statistics
+    move, as Flax's mutated ``batch_stats`` do), the model's mode is restored after.
+
+    Randomness is an input: ``draws`` maps "hand" and "obj" to the score loss's
+    ``(random_t, z)``, and ``dropout`` hands out the 10 dropout keep masks in call order
+    (``DropoutMasks(masks=...)`` replays given ones); whatever is not given is drawn from
+    ``generator`` (torch's default when None)."""
+    cfg = ctx.cfg
+    draws = draws or {}
+    was_training = model.training
+    model.train()
+    try:
+        out = model.trunk(batch, dropout if dropout is not None else
+                          DropoutMasks(generator=generator))
+    finally:
+        model.train(was_training)
+
+    def scorer(den: Denoiser):
+        def fn(feat, x, t):
+            std = ctx.sde.marginal_prob(x, t)[1].reshape(x.shape[0], 1)
+            return den(feat, x, t, std)
+        return fn
+
+    loss: Dict[str, torch.Tensor] = {}
+    gt_mano_6d = T.mano_aa_to_6d(batch["gt_mano"])[..., :-10]
+    for name, den, feat, gt in (("hand", model.denoiser_hand, out["encoding_hand"], gt_mano_6d),
+                                ("obj", model.denoiser_obj, out["encoding_obj"], batch["gt_obj"])):
+        random_t, z = draws.get(name, (None, None))
+        loss[f"diff_{name}_loss"] = score_matching_loss(
+            scorer(den), feat, gt, ctx.sde, cfg.repeat_num, random_t=random_t, z=z,
+            generator=generator)
+    loss["hm_hand_loss"] = joints_mse_loss(out["pd_hm_hand"], batch["hm_hand"])
+    loss["hm_obj_loss"] = joints_mse_loss(out["pd_hm_obj"], batch["hm_obj"])
+
+    pd_vert, pd_joint = hand_verts_meters(ctx.mano, out["pd_mano_pose"], out["pd_mano_shape"])
+    if "is_ho3d" in batch:
+        aligned = get_joint_aligned_with_ho3d(pd_vert, pd_joint)
+        pd_joint = torch.where(batch["is_ho3d"].bool()[:, None, None], aligned, pd_joint)
+    gt_mano = batch["gt_mano"]
+    loss.update(heads.mano_losses(
+        out["pd_mano_pose"], out["pd_mano_shape"], pd_vert, pd_joint, gt_mano[:, :48],
+        gt_mano[:, 48:], batch["gt_hand_vert_flip"], batch["gt_hand_jt3d_flip"],
+        batch["is_right"].bool()))
+
+    # physics: the force anchors sit on the ground-truth hand mesh
+    force_local = out["pd_phy"]["force_local"]
+    gt_force_point, pd_force_global = anchor_lib.force_local_to_global(
+        ctx.anchor_tables, force_local, batch["gt_hand_vert_flip"])
+    loss.update(heads.physics_losses(
+        gt_force_point, pd_force_global, out["obj_CoM_flipped"], out["pd_phy"]["CoM"],
+        batch["force_local"], force_local, out["gravity_flipped"], batch["is_grasped"]))
+
+    weighted = {k: v * getattr(cfg, f"weight_{k}") for k, v in loss.items()}
+    total = sum(weighted.values())
+    weighted["total_loss"] = total
+    return total, weighted
 
 
 def postprocess_diffusion_hand(final_6d: torch.Tensor, shape: torch.Tensor,

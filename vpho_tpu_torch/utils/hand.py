@@ -7,14 +7,22 @@
 
 ``build_vert2joint`` rebuilds the (21, 778) vertex-to-joint regressor from a MANO model: the
 16 MANO regressor rows plus one-hot fingertip rows, in manopth order.
+``get_joint_aligned_with_ho3d`` puts joints in HO3D's convention (manolayer order, the
+fingertips replaced by mesh vertices).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 MANOLAYER_TO_MANOPTH = np.array(
     [0, 13, 14, 15, 16, 1, 2, 3, 17, 4, 5, 6, 18, 10, 11, 12, 19, 7, 8, 9, 20], np.int32
 )
+MANOPTH_TO_MANOLAYER = np.argsort(MANOLAYER_TO_MANOPTH)
+
+# HO3D's fingertip joints and the mesh vertices that stand in for them
+HO3D_TIPS_ID = (16, 17, 18, 19, 20)
+HO3D_TIPS_VERT_ID = (728, 353, 442, 576, 694)
 
 MANO_PARAMS_LEVEL = {
     0: [0, 1, 2],
@@ -49,3 +57,18 @@ def build_vert2joint(j_regressor: np.ndarray) -> np.ndarray:
     tips[np.arange(5), list(V2J_TIP_IDS)] = 1.0
     v2j = np.concatenate([J, tips], axis=0)[MANOLAYER_TO_MANOPTH]
     return v2j.astype(np.float32)
+
+
+def joint_reorder(joint: torch.Tensor, dst_order: str) -> torch.Tensor:
+    """(..., 21, 3) joints into ``manopth`` or ``manolayer`` order."""
+    if dst_order == "manopth":
+        return joint[..., MANOLAYER_TO_MANOPTH, :]
+    if dst_order == "manolayer":
+        return joint[..., MANOPTH_TO_MANOLAYER, :]
+    raise ValueError(dst_order)
+
+
+def get_joint_aligned_with_ho3d(vert: torch.Tensor, joint: torch.Tensor) -> torch.Tensor:
+    """Manolayer-order joints with the fingertips replaced by their mesh vertices."""
+    j = joint_reorder(joint, "manolayer")
+    return torch.cat([j[..., :HO3D_TIPS_ID[0], :], vert[..., list(HO3D_TIPS_VERT_ID), :]], dim=-2)

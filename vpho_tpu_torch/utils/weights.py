@@ -14,6 +14,10 @@ is this module's own copy of the JAX package's ``_walk_vpho``; the layout conver
     ``num_batches_tracked``
 MANO, YCB and anchor tables are constants outside the ``state_dict``.
 
+``jax_variables_from_state_dict(sd)`` is the inverse, from the same ``_walk`` table: the Flax
+trees as nested dicts of numpy arrays (``num_batches_tracked``, which Flax has no slot for, is
+dropped).  ``save_final_model`` pickles them as the JAX package's ``final_model.pkl``.
+
 ``load_pretrain(model, path, remove_keys)`` is ``--pretrain`` for the JAX package's
 ``final_model.pkl`` (those trees pickled as numpy arrays; no jax needed to read it).
 """
@@ -181,6 +185,100 @@ def state_dict_from_jax(variables, skip_missing: bool = False) -> Dict[str, torc
 
     _walk(do)
     return {k: torch.from_numpy(np.array(v)) for k, v in conv.sd.items()}
+
+
+class _Inverter:
+    """The ``_Converter``'s layout conversions run backwards, into nested dicts."""
+
+    def __init__(self, sd: Dict[str, np.ndarray], n_heads: int):
+        self.sd = sd
+        self.n_heads = n_heads
+        self.tree = {"params": {}, "batch_stats": {}, "buffers": {}}
+
+    def put(self, coll: str, path: Tuple[str, ...], value: np.ndarray):
+        node = self.tree[coll]
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.ascontiguousarray(value)
+
+    def conv(self, tkey, *fpath):
+        self.put("params", fpath + ("kernel",), np.transpose(self.sd[tkey + ".weight"], (2, 3, 1, 0)))
+        if tkey + ".bias" in self.sd:
+            self.put("params", fpath + ("bias",), self.sd[tkey + ".bias"])
+
+    def deconv(self, tkey, *fpath):
+        k = np.transpose(self.sd[tkey + ".weight"], (2, 3, 0, 1))[::-1, ::-1]
+        self.put("params", fpath + ("kernel",), k)
+
+    def linear(self, tkey, *fpath):
+        self.put("params", fpath + ("kernel",), self.sd[tkey + ".weight"].T)
+        self.put("params", fpath + ("bias",), self.sd[tkey + ".bias"])
+
+    def bn(self, tkey, *fpath):
+        base = fpath + ("BatchNorm_0",)
+        self.put("params", base + ("scale",), self.sd[tkey + ".weight"])
+        self.put("params", base + ("bias",), self.sd[tkey + ".bias"])
+        self.put("batch_stats", base + ("mean",), self.sd[tkey + ".running_mean"])
+        self.put("batch_stats", base + ("var",), self.sd[tkey + ".running_var"])
+
+    def residual(self, tkey, *fpath):
+        self.bn(tkey + ".bn", *fpath, "TorchBatchNorm_0")
+        self.conv(tkey + ".conv1", *fpath, "Conv_0")
+        self.bn(tkey + ".bn1", *fpath, "TorchBatchNorm_1")
+        self.conv(tkey + ".conv2", *fpath, "Conv_1")
+        self.bn(tkey + ".bn2", *fpath, "TorchBatchNorm_2")
+        self.conv(tkey + ".conv3", *fpath, "Conv_2")
+        if tkey + ".conv4.weight" in self.sd:
+            self.conv(tkey + ".conv4", *fpath, "Conv_3")
+
+    def bottleneck(self, tkey, *fpath):
+        for i, name in enumerate(["conv1", "conv2", "conv3"]):
+            self.conv(f"{tkey}.{name}", *fpath, f"Conv_{i}")
+            self.bn(f"{tkey}.bn{i + 1}", *fpath, f"TorchBatchNorm_{i}")
+        if tkey + ".downsample.0.weight" in self.sd:
+            self.conv(tkey + ".downsample.0", *fpath, "Conv_3")
+            self.bn(tkey + ".downsample.1", *fpath, "TorchBatchNorm_3")
+
+    def mha(self, tkey, *fpath):
+        w, b = self.sd[tkey + ".in_proj_weight"], self.sd[tkey + ".in_proj_bias"]
+        d = w.shape[1]
+        for i, name in enumerate(("query", "key", "value")):
+            self.put("params", fpath + (name, "kernel"),
+                     w[i * d:(i + 1) * d].T.reshape(d, self.n_heads, -1))
+            self.put("params", fpath + (name, "bias"),
+                     b[i * d:(i + 1) * d].reshape(self.n_heads, -1))
+        self.put("params", fpath + ("out", "kernel"),
+                 self.sd[tkey + ".out_proj.weight"].T.reshape(self.n_heads, -1, d))
+        self.put("params", fpath + ("out", "bias"), self.sd[tkey + ".out_proj.bias"])
+
+    def layernorm(self, tkey, *fpath):
+        self.put("params", fpath + ("scale",), self.sd[tkey + ".weight"])
+        self.put("params", fpath + ("bias",), self.sd[tkey + ".bias"])
+
+    def fourier(self, tkey, *fpath):
+        self.put("buffers", fpath, self.sd[tkey])
+
+    def bank(self, tkey, *fpath):
+        *scope, kname, bname = fpath
+        self.put("params", tuple(scope) + (kname,), self.sd[tkey + ".weight"])
+        self.put("params", tuple(scope) + (bname,), self.sd[tkey + ".bias"])
+
+
+def jax_variables_from_state_dict(state_dict, n_heads: int = 2) -> Dict[str, dict]:
+    """The port's ``state_dict`` -> Flax ``{"params", "batch_stats", "buffers"}`` numpy trees,
+    the inverse of ``state_dict_from_jax`` (``n_heads``: the cross modules' attention heads)."""
+    sd = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+          for k, v in state_dict.items()}
+    inv = _Inverter(sd, n_heads)
+    _walk(lambda kind, tkey, *fpath: getattr(inv, kind)(tkey, *fpath))
+    return inv.tree
+
+
+def save_final_model(model: torch.nn.Module, path: str) -> None:
+    """Pickle ``model``'s weights as the JAX package's ``final_model.pkl``: its Flax trees as
+    numpy arrays, read by ``--pretrain`` in either package."""
+    with open(path, "wb") as f:
+        pickle.dump(jax_variables_from_state_dict(model.state_dict()), f)
 
 
 def _drop_prefixes(tree, remove_keys, path=()):
