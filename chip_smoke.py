@@ -42,6 +42,26 @@ Phases, one output line each:
               bf16 steps/s, every bf16 loss finite, ``epoch_1.state`` and ``final_model.pkl``;
               then a resume from ``epoch_1.state`` restores params, BN statistics, optimizer
               moments and step exactly, and ``--max_epochs 2`` trains the second epoch
+  12. data    a mini DexYCB tree (256 frames of 640x480 JPEG, every third hand left) in a
+              temporary directory: the decoder, and the loader's items/s at bs 64, patch 256,
+              the default workers, for train and eval, host and device mode, with the contact
+              labels' cache cold and warm
+  13. preprocess the device preprocess (``--device_preprocess``) of a bs-64 device-mode batch:
+              ms per batch (CUDA events) and peak memory, eval (rectilinear warp) and train
+              (two-pass warp and the augmentations); on 4 samples, the card against the port on
+              the CPU in float32 with the same erase noise
+  14. data_eval ``--mode eval --eval_full --device_preprocess`` on the tree at the blessed config
+              (bf16): frames/s, split into loader wait / preprocess / predict / metrics per
+              batch, K1 = 50 and K2 = 2 launches a batch, every metric finite
+  15. data_train ``--mode train --max_epochs 1 --device_preprocess`` on the tree (f32, bs 64,
+              patch 256, 4 steps, the blessed sub-eval flags): steps/s, loader wait and
+              preprocess per step, finite losses, ``epoch_1.state``; the f32 sub-eval runs K2
+              twice a batch and K1's plain form
+  16. ho3d    a mini HO3D tree (64 train frames, 10 evaluation frames, 640x480 PNG):
+              ``--mode infer`` writes both codalab zips with the evaluation frames in
+              ``evaluation.txt`` order (each zip row is its frame's prediction in the OpenGL
+              frame); ``--mode train --max_epochs 1 --full_evaluation_freq 1
+              --device_preprocess`` runs ``infer_ho3d`` after its epoch
 Then the card's ``name, power.limit``, the kernels' JSON line and, last, the result line.
 Any failed check raises, so the script exits non-zero and prints no result.  It needs one
 CUDA device and the checkout it sits in; without either it fails.
@@ -380,6 +400,7 @@ def main() -> int:
     import dataclasses
     import math
     import os
+    import pickle
 
     import numpy as np
 
@@ -747,6 +768,207 @@ def main() -> int:
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     for name in kernels:
         kernels[name]["launches_by_path"]["train_entry"] = entry_launches[name]
+
+    del tr1, tr3
+    torch.cuda.empty_cache()
+
+    # ---- 12. data: the DexYCB loader on real-format frames ---------------------------------
+    import shutil
+    import tempfile
+
+    from vpho_tpu_torch.data import codec
+    from vpho_tpu_torch.data import dexycb as DX
+    from vpho_tpu_torch.data.device_pipeline import draw_erase_noise, preprocess_batch
+    from vpho_tpu_torch.data.fixtures_disk import build_mini_dexycb, build_mini_ho3d
+
+    tmp_root = tempfile.mkdtemp(prefix="vpho_chip_smoke_")
+    bs, patch, steps = 64, 256, 50          # the blessed batch, crop and ODE steps
+    n_frames = 4 * bs                       # four batches: the loader's four slots busy
+    t_start = time.perf_counter()
+    dex_root = build_mini_dexycb(os.path.join(tmp_root, "DexYCB"), n=n_frames, seed=31)
+    build_s = time.perf_counter() - t_start
+    loader_rate = {}
+    for split, is_train in (("train", True), ("eval", False)):
+        for mode, device_mode in (("host", False), ("device", True)):
+            dcfg = get_config(["--data_dir", dex_root, "--patch_size", str(patch)]
+                              + (["--device_preprocess"] if device_mode else []))
+            ds = DX.DexYCBForceDataset(dcfg, dex_root, is_train=is_train)
+            for cache in ("cold", "warm"):
+                if cache == "cold":
+                    shutil.rmtree(os.path.join(dex_root, "cache", "hand_contact"),
+                                  ignore_errors=True)
+                t_start = time.perf_counter()
+                got = sum(len(b["index"]) for b in (DX.make_loader(ds, bs) if is_train else
+                                                    DX.make_loader(ds, bs, drop_last=False)))
+                loader_rate[f"{split}_{mode}_{cache}"] = got / (time.perf_counter() - t_start)
+                check(got == n_frames, f"data {split} {mode}: {got} items")
+    say(phase="data", decoder=codec.decoder(), frames=n_frames, frame="640x480 jpg", batch=bs,
+        patch=patch, workers=8, build_s=build_s, items_per_s=loader_rate)
+
+    # ---- 13. preprocess: the device preprocess at bs 64 ------------------------------------
+    pre_ms, pre_peak_gb, pre_err = {}, {}, {}
+    for split, is_train in (("eval", False), ("train", True)):
+        dcfg = get_config(["--data_dir", dex_root, "--patch_size", str(patch),
+                           "--device_preprocess"])
+        ds = DX.DexYCBForceDataset(dcfg, dex_root, is_train=is_train)
+        host = next(DX.make_loader(ds, bs))
+        raw = {k: torch.as_tensor(v).to(dev) for k, v in host.items()}
+        noise = draw_erase_noise(raw, patch, "pixel", torch.Generator(dev).manual_seed(41)) \
+            if is_train else None
+        kw = dict(patch_size=patch, heatmap_size=64, hand_sigma=2.0, obj_sigma=2.0,
+                  is_train=is_train)
+        run_pre = lambda: preprocess_batch(raw, noise=noise, **kw)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = run_pre()
+        torch.cuda.synchronize()
+        pre_peak_gb[split] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        pre_ms[split] = cuda_ms(run_pre, 10)
+        check(out["rgb"].device.type == "cuda" and tuple(out["rgb"].shape) == (bs, patch, patch, 3)
+              and bool(torch.isfinite(out["rgb"]).all()), f"preprocess {split} rgb")
+        # the card against the CPU, float32, on 4 samples with the same noise
+        four = {k: v[:4] for k, v in raw.items()}
+        n4 = None if noise is None else noise[:4]
+        card4 = preprocess_batch(four, noise=n4, **kw)
+        cpu4 = preprocess_batch({k: v.cpu() for k, v in four.items()},
+                                noise=None if n4 is None else n4.cpu(), **kw)
+        pre_err[split] = {k: (card4[k].cpu() - cpu4[k]).abs().max().item()
+                          for k in ("rgb", "hm_hand", "hm_obj")}
+        check(pre_err[split]["rgb"] <= 2e-4 and max(pre_err[split]["hm_hand"],
+                                                    pre_err[split]["hm_obj"]) <= 1e-5,
+              f"preprocess {split}: card vs CPU {pre_err[split]}")
+        del raw, out, host
+    say(phase="preprocess", batch=bs, patch=patch, frame="640x480", ms=pre_ms,
+        peak_mem_gb=pre_peak_gb, card_vs_cpu_max_abs_err=pre_err,
+        band=dict(rgb=2e-4, heatmaps=1e-5))
+
+    # ---- 14. data_eval: --mode eval on the tree, device preprocess, blessed config ---------
+    blessed = ["--eval_batch_size", str(bs), "--patch_size", str(patch), "--sample_num", "100",
+               "--sampling_steps", str(steps), "--topk_hand", "30", "--topk_obj", "10",
+               "--sample_T0", "0.65", "--compute_dtype", "bfloat16"]
+    de_argv = ["--mode", "eval", "--eval_full", "--data_dir", dex_root, "--device_preprocess",
+               "--output_dir", os.path.join("output", "chip_smoke_data")] + blessed
+    K1.launches = K2.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    tr_de = runner.run(get_config(de_argv))
+    torch.cuda.synchronize()
+    de_wall = time.perf_counter() - t_start
+    de_launches = {"bank_mlp": K1.launches, "min_dist": K2.launches}
+    tm = tr_de.last_eval["timing"]
+    n_de = len(tm["frames"])
+    check(tm["frames"] == [bs] * 4, f"data_eval batches {tm['frames']}")
+    check(de_launches == {"bank_mlp": steps * n_de, "min_dist": 2 * n_de},
+          f"data_eval launch counts {de_launches}")
+    check(all(p > 0 for p in tm["preprocess_s"]), "data_eval: a batch skipped the preprocess")
+    de_report = tr_de.last_eval["report"]
+    de_values = [v for per in de_report.values() for table in per.values()
+                 for row in table.values() for v in row.values()]
+    check(de_values and all(math.isfinite(float(v)) for v in de_values), "data_eval metrics")
+    de_split = {k[:-2]: sum(tm[k][1:]) / (n_de - 1) * 1e3
+                for k in ("wait_s", "preprocess_s", "predict_s", "metrics_s", "batch_s")}
+    say(phase="data_eval", frames=n_frames, batches=n_de, batch=bs, dtype="bfloat16",
+        wall_s=de_wall, frames_per_s=sum(tm["frames"][1:]) / sum(tm["batch_s"][1:]),
+        per_batch_ms=de_split, batch0_ms={k[:-2]: tm[k][0] * 1e3 for k in
+                                          ("wait_s", "preprocess_s", "predict_s", "batch_s")},
+        launches=de_launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del tr_de
+    torch.cuda.empty_cache()
+
+    # ---- 15. data_train: --mode train on the tree, device preprocess -----------------------
+    dt_argv = ["--mode", "train", "--max_epochs", "1", "--data_dir", dex_root,
+               "--device_preprocess", "--batch_size", str(bs), "--print_freq", "1", "--viz_freq",
+               "-1", "--output_dir", os.path.join("output", "chip_smoke_data_train")] + blessed
+    dt_argv[dt_argv.index("--compute_dtype") + 1] = "float32"
+    K1.launches = K2.launches = 0
+    t_start = time.perf_counter()
+    tr_dt = runner.run(get_config(dt_argv))
+    torch.cuda.synchronize()
+    dt_wall = time.perf_counter() - t_start
+    lt = tr_dt.last_train
+    check(lt["steps"] == 4 and tr_dt.step == 4,
+          f"data_train steps {lt['steps']}")
+    check(len(lt["losses"]) == 14 and all(math.isfinite(v) for v in lt["losses"].values()),
+          f"data_train losses {lt['losses']}")
+    check(all(p > 0 for p in lt["preprocess_s"]), "data_train: a step skipped the preprocess")
+    check(os.path.isfile(os.path.join(tr_dt.save_dir, "checkpoint", "epoch_1.state")),
+          "data_train: no epoch_1.state")
+    # the float32 sub-eval takes K1's plain einsum form (the kernel is the bf16 policy's fast
+    # path, as in the JAX package) and K2 twice a batch
+    n_sub = len(tr_dt.last_eval["timing"]["frames"])
+    check(K1.launches == 0 and K2.launches == 2 * n_sub,
+          f"data_train sub-eval launches {K1.launches}, {K2.launches}")
+    say(phase="data_train", dtype="float32", batch=bs, patch=patch, steps=lt["steps"],
+        epoch_s=lt["seconds"], steps_per_s=lt["steps"] / lt["seconds"], wait_ms=[w * 1e3 for w in lt["wait_s"]],
+        preprocess_ms=[p * 1e3 for p in lt["preprocess_s"]],
+        step_split_ms={k[:-2]: [v * 1e3 for v in lt[k]] for k in
+                       ("forward_s", "backward_s", "optimizer_s")},
+        last_losses=lt["losses"], wall_s=dt_wall, sub_eval_batches=n_sub,
+        sub_eval_launches={"bank_mlp": K1.launches, "min_dist": K2.launches})
+    del tr_dt
+    torch.cuda.empty_cache()
+
+    # ---- 16. ho3d: --mode infer (codalab zips) and --mode train with infer_ho3d -------------
+    import zipfile
+
+    ho_root = os.path.join(tmp_root, "HO3D_v2")
+    n_ho_train, n_ho_eval = bs, 10
+    build_mini_ho3d(ho_root, n_train=n_ho_train, n_eval=n_ho_eval, seed=43)
+    ho_argv = ["--dataset_name", "ho3d", "--data_dir", ho_root, "--viz_freq", "-1",
+               "--output_dir", os.path.join("output", "chip_smoke_ho3d")] + blessed
+    K1.launches = K2.launches = 0
+    t_start = time.perf_counter()
+    tr_hi = runner.run(get_config(["--mode", "infer"] + ho_argv))
+    torch.cuda.synchronize()
+    hi_wall = time.perf_counter() - t_start
+    check(K1.launches == steps and K2.launches == 2,
+          f"ho3d infer launches {K1.launches}, {K2.launches}")
+    rows = pickle.load(open(os.path.join(tr_hi.save_dir,
+                                         "my-prediction_align-2023_CVPR_HFL-infer.pkl"), "rb"))
+    order = np.concatenate([r["index"] for r in rows])
+    joints_cv = np.concatenate([r["pd_hand_joint"] for r in rows])[np.argsort(order)]
+    gl = np.array([1.0, -1.0, -1.0], np.float32)
+    zips = {}
+    for name in ("hand_reg", "hand_diff"):
+        path = os.path.join(tr_hi.save_dir, "submit", f"{name}.zip")
+        with zipfile.ZipFile(path) as z:
+            joints, verts = (np.asarray(a) for a in json.loads(z.read(f"{name}.json")))
+        check(joints.shape == (n_ho_eval, 21, 3) and verts.shape == (n_ho_eval, 778, 3)
+              and np.isfinite(verts).all(), f"ho3d {name}: {joints.shape}, {verts.shape}")
+        zips[name] = os.path.getsize(path)
+    # the diffusion zip's row k is frame k of evaluation.txt: the pkl's prediction for
+    # dataset index k, turned to the OpenGL frame (the zip rounds to 6 decimals)
+    zip_err = float(np.abs(joints - joints_cv * gl).max())
+    check(sorted(order.tolist()) == list(range(n_ho_eval)) and zip_err <= 1e-6,
+          f"ho3d: zip order against the pkl, max err {zip_err}")
+    lines = open(os.path.join(ho_root, "evaluation.txt")).read().split()
+    check(lines == [f"SM1/{i:04d}" for i in reversed(range(n_ho_eval))],
+          "ho3d: evaluation.txt order")
+    del tr_hi
+    K1.launches = K2.launches = 0
+    t_start = time.perf_counter()
+    tr_ht = runner.run(get_config(["--mode", "train", "--max_epochs", "1", "--batch_size", str(bs),
+                                   "--full_evaluation_freq", "1", "--device_preprocess",
+                                   "--print_freq", "1"] + ho_argv))
+    torch.cuda.synchronize()
+    ht_wall = time.perf_counter() - t_start
+    ht_files = sorted(os.path.relpath(os.path.join(r, f), tr_ht.save_dir)
+                      for r, _, fs in os.walk(tr_ht.save_dir) for f in fs)
+    for want in ("submit/ep1_hand_reg.zip", "submit/ep1_hand_diff.zip",
+                 "checkpoint/epoch_1.state", "my-prediction_align-2023_CVPR_HFL-inferep1_.pkl"):
+        check(want in ht_files, f"ho3d train: no {want} in {ht_files}")
+    check(tr_ht.step == 1 and all(math.isfinite(v) for v in tr_ht.last_train["losses"].values()),
+          f"ho3d train: step {tr_ht.step}, losses {tr_ht.last_train['losses']}")
+    check(K1.launches == steps and K2.launches == 2, f"ho3d train infer launches {K1.launches}")
+    say(phase="ho3d", train_frames=n_ho_train, eval_frames=n_ho_eval, frame="640x480 png",
+        infer_wall_s=hi_wall, zip_bytes=zips, zip_vs_pkl_max_abs_err=zip_err,
+        train_wall_s=ht_wall, train_losses=tr_ht.last_train["losses"],
+        train_preprocess_ms=[p * 1e3 for p in tr_ht.last_train["preprocess_s"]], files=ht_files)
+    del tr_ht
+    shutil.rmtree(tmp_root)
+    for name in kernels:
+        kernels[name]["launches_by_path"].update(data_eval=de_launches[name])
 
     print(card)
     print(json.dumps({"kernels": [kernels["bank_mlp"], kernels["min_dist"]]}))

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (K1 bank-MLP, K2 nearest-vertex search) against their plain
-PyTorch versions on the card, and one training step on the card.
+PyTorch versions on the card, one training step on the card, and the device preprocess
+(``--device_preprocess``) on the card against itself on the CPU.
 
 There is no CPU mode for a CUDA kernel, so every test here needs an NVIDIA GPU and skips
 without one.  This file imports neither jax nor ``vpho_tpu``, so on a machine with a card and
@@ -98,9 +99,13 @@ def test_min_dist_kernel_matches_plain(cuda_device, B, N, V):
                                torch.from_numpy(verts).to(cuda_device))
     torch.cuda.synchronize()
     assert K2.launches == before + 1
-    d_ref, i_ref = K2.min_dist_plain(torch.from_numpy(fp), torch.from_numpy(verts))
-    np.testing.assert_allclose(d.cpu().numpy(), d_ref.numpy(), rtol=0, atol=1e-5)
-    assert_argmin_equivalent(fp, verts, i.cpu().numpy(), i_ref.numpy())
+    # the plain reference runs on the card too: on the host CPU its rounding of
+    # |x|^2 + |y|^2 - 2xy differs, and near a zero distance the square root magnifies that
+    # past the bar
+    d_ref, i_ref = K2.min_dist_plain(torch.from_numpy(fp).to(cuda_device),
+                                     torch.from_numpy(verts).to(cuda_device))
+    np.testing.assert_allclose(d.cpu().numpy(), d_ref.cpu().numpy(), rtol=0, atol=1e-5)
+    assert_argmin_equivalent(fp, verts, i.cpu().numpy(), i_ref.cpu().numpy())
 
 
 def test_train_step_on_the_card(cuda_device, tmp_path):
@@ -134,3 +139,30 @@ def test_train_step_on_the_card(cuda_device, tmp_path):
     assert sum(bool(g.any()) for g in grads) >= 0.8 * len(grads)
     stats = [k for k in before if k.endswith("running_var")]
     assert all(not torch.equal(model.state_dict()[k], before[k]) for k in stats)
+
+
+@pytest.mark.parametrize("is_train", [False, True])
+def test_device_preprocess_on_the_card_matches_the_cpu(cuda_device, tmp_path, is_train):
+    """The device preprocess of a mini DexYCB batch (640x480 frames, one left hand, patch 128)
+    on the card and on the CPU, float32, the same inputs and erase noise: rgb within 2e-4
+    (normalized units; the blur and the jitter's mean sum in other orders), heatmaps within
+    1e-5."""
+    from vpho_tpu_torch.configs.config import Config
+    from vpho_tpu_torch.data import dexycb as D
+    from vpho_tpu_torch.data.device_pipeline import draw_erase_noise, preprocess_batch
+    from vpho_tpu_torch.data.fixtures_disk import build_mini_dexycb
+
+    root = build_mini_dexycb(str(tmp_path), n=4, seed=3, sides=["right", "left", "right", "right"])
+    cfg = Config(data_dir=root, patch_size=128, device_preprocess=True)
+    ds = D.DexYCBForceDataset(cfg, root, is_train=is_train)
+    raw = {k: torch.as_tensor(v) for k, v in D.collate([ds[i] for i in range(4)]).items()}
+    noise = draw_erase_noise(raw, 128, "pixel", torch.Generator().manual_seed(0)) \
+        if is_train else None
+    kw = dict(patch_size=128, heatmap_size=64, hand_sigma=2.0, obj_sigma=2.0, is_train=is_train)
+    cpu = preprocess_batch(raw, noise=noise, **kw)
+    card = preprocess_batch({k: v.to(cuda_device) for k, v in raw.items()},
+                            noise=None if noise is None else noise.to(cuda_device), **kw)
+    assert card["rgb"].device.type == "cuda" and card["rgb"].shape == (4, 128, 128, 3)
+    torch.testing.assert_close(card["rgb"].cpu(), cpu["rgb"], rtol=0, atol=2e-4)
+    for k in ("hm_hand", "hm_obj"):
+        torch.testing.assert_close(card[k].cpu(), cpu[k], rtol=0, atol=1e-5)

@@ -2,10 +2,15 @@
 infer_candidate, or re-score a dumped prediction pkl (counterpart of
 ``vpho_tpu/engine/runner.py``).
 
-The port runs on the synthetic fixture stream: 8 training batches an epoch, each epoch
-followed by a checkpoint, a sub-eval and ``final_model.pkl``.  Real DexYCB / HO3D data, HO3D
-training (its per-epoch ``infer_ho3d``) and HO3D inference are later slices and raise
-``NotImplementedError`` rather than fall back to synthetic data.
+The data comes from, in this order:
+  1. HO3D under ``--data_dir`` (``--dataset_name ho3d``): train on its train split, the
+     sub-eval on every 10th train frame, ``infer_ho3d`` (the codalab zips) on its evaluation
+     split, every ``--full_evaluation_freq`` epochs when training;
+  2. DexYCB under ``--data_dir``: its train and test splits, the sub-eval on every 10th test
+     frame;
+  3. else the synthetic fixture stream: 8 training batches an epoch.
+Each epoch is followed by a checkpoint, the sub-eval (or HO3D's inference) and
+``final_model.pkl``.
 """
 from __future__ import annotations
 
@@ -74,50 +79,82 @@ def run(cfg: Config, device=None):
         raise NotImplementedError(
             "--mode energy is non-functional in the reference "
             "(zhoujun-7/VPHO main.py:14-15) and intentionally not rebuilt")
-    if cfg.mode == "train" and cfg.dataset_name == "ho3d":
-        raise NotImplementedError("--mode train on HO3D runs infer_ho3d (codalab zips) every "
-                                  "--full_evaluation_freq epochs, which is not ported yet "
-                                  "(ROADMAP section 1, with the data pipeline)")
-    if cfg.mode == "infer" and cfg.dataset_name == "ho3d":
-        raise NotImplementedError("--mode infer on HO3D (infer_ho3d, codalab zips) is not "
-                                  "ported yet (ROADMAP section 1, with the data pipeline)")
-    if _has_real_data(cfg):
-        raise NotImplementedError(f"real {cfg.dataset_name} data under {cfg.data_dir}: the "
-                                  f"loaders are not ported yet (ROADMAP section 1, data pipeline)")
-
     trainer = Trainer(cfg, device)
     log = trainer.logger
     if cfg.eval_repeat_num != 50:
         log.warning("--eval_repeat_num is parsed for CLI parity but consumed nowhere in the "
                     "reference; use --sample_num to set the eval hypothesis count")
-    log.warning("No real DexYCB found under %s: using the synthetic fixture stream",
-                cfg.data_dir)
-    steps_per_epoch = 8
-    trainer.init_state(steps_per_epoch if cfg.mode == "train" else None)
+    metric_path_of = None
+    if _has_real_data(cfg):
+        from ..data.codec import decoder
 
-    def get_eval(full: bool):
-        return synthetic_stream(trainer.ctx, cfg, 4 if full else 2, cfg.eval_batch_size,
-                                seed=9999, with_eval_keys=True)
+        log.info(f"{cfg.dataset_name} under {cfg.data_dir}: frames decoded with {decoder()}"
+                 + (", preprocessed on the device" if cfg.device_preprocess else ""))
+    if _has_real_data(cfg) and cfg.dataset_name == "ho3d":
+        from ..data.dexycb import make_loader
+        from ..data.ho3d import HO3DForceDataset
+
+        train_ds = HO3DForceDataset(cfg, cfg.data_dir, split="train")
+        valid_ds = HO3DForceDataset(cfg, cfg.data_dir, split="valid")
+        test_ds = HO3DForceDataset(cfg, cfg.data_dir, split="test")
+        # infer_ho3d's paths are the evaluation split's; the metric eval runs on valid_ds
+        trainer.eval_dataset = test_ds
+        metric_path_of = valid_ds.get_path
+        steps_per_epoch = max(1, len(train_ds) // cfg.batch_size)
+        get_train = lambda ep: make_loader(train_ds, cfg.batch_size, shuffle=True, seed=ep)
+        get_eval = lambda full: make_loader(test_ds if full else valid_ds, cfg.eval_batch_size,
+                                            shuffle=False, drop_last=False)
+    elif _has_real_data(cfg):
+        from ..data.dexycb import DexYCBForceDataset, make_loader
+
+        train_ds = DexYCBForceDataset(cfg, cfg.data_dir, is_train=True)
+        test_ds = DexYCBForceDataset(cfg, cfg.data_dir, is_train=False)
+        trainer.eval_dataset = test_ds
+        steps_per_epoch = len(train_ds) // cfg.batch_size
+        get_train = lambda ep: make_loader(train_ds, cfg.batch_size, shuffle=True, seed=ep)
+        # every test frame is scored once: the tail batch is padded and masked by _valid
+        get_eval = lambda full: make_loader(test_ds, cfg.eval_batch_size, shuffle=False,
+                                            subsample=1 if full else 10, drop_last=False)
+    else:
+        log.warning("No real DexYCB found under %s: using the synthetic fixture stream",
+                    cfg.data_dir)
+        steps_per_epoch = 8
+        get_train = lambda ep: synthetic_stream(trainer.ctx, cfg, steps_per_epoch,
+                                                cfg.batch_size, seed=100 * ep)
+        get_eval = lambda full: synthetic_stream(trainer.ctx, cfg, 4 if full else 2,
+                                                 cfg.eval_batch_size, seed=9999,
+                                                 with_eval_keys=True)
+    trainer.init_state(steps_per_epoch if cfg.mode == "train" else None)
 
     if cfg.mode == "train":
         if cfg.start_with_eval:
-            trainer.evaluate(get_eval(False))
+            trainer.evaluate(get_eval(False), path_of=metric_path_of)
         for epoch in range(trainer.start_epoch, cfg.max_epochs):
             log.info(f"Epoch {epoch}/{cfg.max_epochs}")
-            trainer.train_one_epoch(epoch, synthetic_stream(
-                trainer.ctx, cfg, steps_per_epoch, cfg.batch_size, seed=100 * epoch),
-                steps_per_epoch)
+            trainer.train_one_epoch(epoch, get_train(epoch), steps_per_epoch)
             trainer.save_checkpoint(epoch + 1)
-            trainer.evaluate(get_eval(False))
+            # HO3D runs its codalab inference every --full_evaluation_freq epochs instead,
+            # with the sub-eval only when mixing train sets
+            if cfg.dataset_name != "ho3d":
+                trainer.evaluate(get_eval(False), path_of=metric_path_of)
+            elif (epoch + 1) % cfg.full_evaluation_freq == 0:
+                if cfg.use_mix_trainset:
+                    trainer.evaluate(get_eval(False), path_of=metric_path_of)
+                trainer.infer_ho3d(get_eval(True), epoch_tag=f"ep{epoch + 1}_")
             trainer.save_model()
     elif cfg.mode == "eval":
-        out = trainer.evaluate(get_eval(cfg.eval_full and cfg.dataset_name != "ho3d"))
+        # HO3D's evaluation split has no hand ground truth: the metric eval runs on valid
+        out = trainer.evaluate(get_eval(cfg.eval_full and cfg.dataset_name != "ho3d"),
+                               path_of=metric_path_of)
         trainer.dump_predictions(out["collector_res"])
     elif cfg.mode == "infer_candidate":
         trainer.infer_candidates(get_eval(True))
     elif cfg.mode == "infer":
-        out = trainer.evaluate(get_eval(True))
-        trainer.dump_predictions(out["collector_res"], tag="-infer")
+        if cfg.dataset_name == "ho3d":
+            trainer.infer_ho3d(get_eval(True))
+        else:
+            out = trainer.evaluate(get_eval(True))
+            trainer.dump_predictions(out["collector_res"], tag="-infer")
     else:
         raise ValueError(f"Invalid mode: {cfg.mode}")
     return trainer

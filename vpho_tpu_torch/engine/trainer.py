@@ -23,6 +23,13 @@ columns.  The ODE start state of batch i is ``x0_for(i, batch_size)`` when given
 from a ``torch.Generator`` seeded 128 + i on the device.  The metrics stay on the device until
 the report; each batch makes one host transfer, for the prediction dump.
 
+With ``--device_preprocess`` the loaders ship decoded frames and the batch's pixel work
+(crop, colour augmentation, erasing, heatmaps) runs on the device when the batch is staged
+(``data/device_pipeline.py``); a train epoch draws its erase noise from a generator seeded
+0x5A5A0000 + epoch.  ``infer_ho3d`` is HO3D's codalab inference: object metrics, the
+regression and the aggregated hands in the OpenGL frame as two zips in ``evaluation.txt``
+order, and the prediction pkl.
+
 Orbax checkpoints and multi-device runs are later slices.
 """
 from __future__ import annotations
@@ -34,12 +41,13 @@ import pickle
 import re
 import sys
 import time
-from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterable, Iterator, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..configs.config import Config
+from ..data.device_pipeline import make_device_preprocess
 from ..data.prefetch import DeviceStager, prefetch
 from ..models import anchor as anchor_lib
 from ..models import vpho as V
@@ -283,6 +291,14 @@ class _BatchClock:
         return a.elapsed_time(b) / 1e3 if isinstance(a, torch.cuda.Event) else b - a
 
 
+class _Staged(NamedTuple):
+    batch: Dict[str, torch.Tensor]
+    valid: np.ndarray
+    index: np.ndarray
+    wait_s: float                       # host seconds waiting for the loader
+    pre_span: Optional[tuple]           # the device preprocess's clock marks, or None
+
+
 class Trainer:
     """Train / eval / infer runner (the JAX package's ``Trainer``)."""
 
@@ -292,9 +308,6 @@ class Trainer:
         if cfg.num_devices > 1:
             raise NotImplementedError("--num_devices > 1 is not ported yet (ROADMAP section 1, "
                                       "multi-GPU training via torch DDP)")
-        if cfg.device_preprocess:
-            raise NotImplementedError("--device_preprocess is not ported yet (ROADMAP section 1, "
-                                      "data pipeline: the GPU preprocess)")
         if cfg.checkpoint and os.path.isdir(cfg.checkpoint):
             raise NotImplementedError(
                 f"--checkpoint {cfg.checkpoint}: an orbax checkpoint directory of the JAX "
@@ -322,6 +335,7 @@ class Trainer:
         self._trace_done = False
         self._told_no_jpg = False
         self.last_eval: Optional[Dict[str, Any]] = None     # the latest evaluate()'s output
+        self.eval_dataset = None        # real data: the eval split, whose get_path fills 'path' 
 
     # -- weights -----------------------------------------------------------------------
 
@@ -419,10 +433,14 @@ class Trainer:
         Returns the last step's losses; ``last_train`` keeps the epoch's time, per-step split
         and last losses (as floats)."""
         gen = torch.Generator(device=self.device).manual_seed(1000 + epoch)
+        noise_gen = torch.Generator(device=self.device).manual_seed(0x5A5A0000 + epoch)
         t0 = time.perf_counter()
         last: Dict[str, torch.Tensor] = {}
-        for i, (b, _, _) in enumerate(self._staged(batches)):
-            last = self.train_step(b, generator=gen)
+        pre_spans, waits = [], []
+        for i, st in enumerate(self._staged(batches, is_train=True, generator=noise_gen)):
+            pre_spans.append(st.pre_span)
+            waits.append(st.wait_s)
+            last = self.train_step(st.batch, generator=gen)
             if i % max(self.cfg.print_freq, 1) == 0:
                 vals = torch.stack([v.float() for v in last.values()]).cpu().tolist()
                 self.logger.info(f"[{i:04d}/{steps_per_epoch}] " + " ".join(
@@ -434,7 +452,9 @@ class Trainer:
         split = {k: 1e3 * sum(v) / max(len(v), 1) for k, v in timing.items()}
         losses = dict(zip(last, torch.stack([v.float() for v in last.values()]).cpu().tolist()))
         self.last_train = {"seconds": seconds, "steps": len(timing["forward_s"]),
-                           "losses": losses, **timing}
+                           "losses": losses, **timing, "wait_s": waits,
+                           "preprocess_s": [self._clock.seconds(*sp) if sp else 0.0
+                                            for sp in pre_spans]}
         self.logger.info(f"Epoch {epoch} done in {seconds:.1f}s (a step: "
                          + ", ".join(f"{k[:-2]} {v:.1f} ms" for k, v in split.items()) + ")")
         return last
@@ -448,9 +468,13 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(128 + i)
         return V.draw_x0(self.ctx, batch_size, gen)
 
-    def _staged(self, batches: Iterable[Dict[str, Any]]):
-        """(batch on the device, valid, index) per host batch, staged a batch ahead."""
+    def _staged(self, batches: Iterable[Dict[str, Any]], is_train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Iterator["_Staged"]:
+        """Each host batch on the device, staged a batch ahead, then (``--device_preprocess``)
+        preprocessed there.  Yields the batch, its valid mask and index, the seconds this
+        thread waited for it, and the preprocess's clock marks (None without one)."""
         stager = DeviceStager(self.device)
+        pre = make_device_preprocess(self.cfg, is_train) if self.cfg.device_preprocess else None
 
         def stage(batch):
             batch = dict(batch)
@@ -460,8 +484,23 @@ class Trainer:
             index = np.full(n, -1) if index is None else np.asarray(index)
             return stager.stage(batch), valid, index
 
-        for staged, valid, index in prefetch(batches, stage):
-            yield stager.ready(staged), valid, index
+        it = iter(prefetch(batches, stage))
+        while True:
+            t0 = time.perf_counter()
+            try:
+                staged, valid, index = next(it)
+            except StopIteration:
+                return
+            wait_s = time.perf_counter() - t0
+            batch, span = stager.ready(staged), None
+            if pre is not None and "rgb_full" in batch:
+                m0 = self._clock.mark()
+                batch = pre(batch, generator=generator)
+                span = (m0, self._clock.mark())
+            yield _Staged(batch, valid, index, wait_s, span)
+
+    def _eval_path_of(self):
+        return self.eval_dataset.get_path if self.eval_dataset is not None else None
 
     def _predict(self, i: int, batch, x0):
         """forward_predict; batch 0 also counts the graph's operations, batch 1 is traced
@@ -490,16 +529,21 @@ class Trainer:
                  x0_for: Optional[X0Fn] = None) -> Dict[str, Any]:
         """Predict + metric suite over an eval stream.  Each batch carries gt_joint and
         gt_hand_vert (camera frame), gt_obj_rt (3, 4), cam_intr and obj_id besides the model
-        inputs.  Returns the report, the dump rows and the per-batch timing."""
+        inputs.  Returns the report, the dump rows and the per-batch timing: seconds waited
+        for the loader, of preprocess, predict and metrics (device spans on a GPU), of the
+        whole batch (host clock), and the frames."""
+        path_of = path_of or self._eval_path_of()
         testers_hand = {k: TesterHand() for k in self.tester_hand_keys}
         testers_obj = {k: TesterObject(self.ctx.registry)
                        for k in ("one_candidate", "mean_candidate_pose")}
         collector_res = []
         clock = _BatchClock(self.device)
-        timing = {"predict_s": [], "metrics_s": [], "batch_s": [], "frames": []}
+        timing = {"wait_s": [], "preprocess_s": [], "predict_s": [], "metrics_s": [],
+                  "batch_s": [], "frames": []}
         t_prev = time.perf_counter()
         with torch.inference_mode():
-            for i, (b, valid, index) in enumerate(self._staged(batches)):
+            for i, st in enumerate(self._staged(batches)):
+                b, valid, index = st.batch, st.valid, st.index
                 x0 = self._x0(i, b["rgb"].shape[0], x0_for)
                 m0 = clock.mark()
                 pd = self._predict(i, b, x0)
@@ -531,6 +575,8 @@ class Trainer:
                 if self.cfg.viz_freq > 0 and i % self.cfg.viz_freq == 0:
                     self._viz(i, b, pd, pd_vert_agg, pd_rt_agg)
                 t_now = time.perf_counter()
+                timing["wait_s"].append(st.wait_s)
+                timing["preprocess_s"].append(clock.seconds(*st.pre_span) if st.pre_span else 0.0)
                 timing["predict_s"].append(clock.seconds(m0, m1))
                 timing["metrics_s"].append(clock.seconds(m1, m2))
                 timing["batch_s"].append(t_now - t_prev)
@@ -607,9 +653,11 @@ class Trainer:
         """``--mode infer_candidate``: per frame, the S diffusion candidates (hand MANO 58-d,
         object 9-d), the regression joints and the physics cue, without aggregation (fp16
         where bulky).  Returns the pkl path."""
+        path_of = path_of or self._eval_path_of()
         rows = []
         with torch.inference_mode():
-            for i, (b, valid, index) in enumerate(self._staged(batches)):
+            for i, st in enumerate(self._staged(batches)):
+                b, valid, index = st.batch, st.valid, st.index
                 x0 = self._x0(i, b["rgb"].shape[0], x0_for)
                 pd, _ = V.forward_candidates(self.model, self.ctx, b, x0=x0)
                 row = _host({"diff_hand_mano": pd["diff_final_hand_mano"],
@@ -626,3 +674,60 @@ class Trainer:
             pickle.dump(_filter_rows(rows, path_of), f)
         self.logger.info(f"Dumped candidates: {path}")
         return path
+
+    def infer_ho3d(self, batches: Iterable[Dict[str, Any]], path_of=None, epoch_tag: str = "",
+                   x0_for: Optional[X0Fn] = None) -> Dict[str, Any]:
+        """HO3D's codalab inference over its GT-less evaluation split: the object metrics,
+        then the regression and the aggregated hands, turned back to the OpenGL frame, as
+        ``<run>/submit/<tag>hand_reg.zip`` and ``<tag>hand_diff.zip`` in dataset
+        (``evaluation.txt``) order, and the prediction pkl (``-infer<tag>``)."""
+        from ..data.ho3d import OPENGL_TO_OPENCV, dump_codalab
+
+        path_of = path_of or self._eval_path_of()
+        testers_obj = {k: TesterObject(self.ctx.registry)
+                       for k in ("one_candidate", "mean_candidate_pose")}
+        # the frame change is diagonal: a sign per axis, exact (no matmul, so no TF32)
+        gl = torch.tensor(np.diag(OPENGL_TO_OPENCV), dtype=torch.float32, device=self.device)
+        rows = []
+        with torch.inference_mode():
+            for i, st in enumerate(self._staged(batches)):
+                b, valid = st.batch, st.valid
+                pd = self._predict(i, b, self._x0(i, b["rgb"].shape[0], x0_for))
+                root, is_right = b["root_joint"], b["is_right"].bool()
+                hv = lambda v: postprocess_hand_vert(v, root, is_right)
+                joint_reg, vert_reg = hv(pd["reg_hand_joint"]), hv(pd["reg_hand_vert"])
+                joint_agg, vert_agg = hv(pd["agg_hand_joint"]), hv(pd["agg_hand_vert"])
+                rt_agg = postprocess_obj_rt(pd["agg_obj_6d"], root)
+                for key, rt in (("one_candidate",
+                                 postprocess_obj_rt(pd["diff_final_obj_6d"][:, 0], root)),
+                                ("mean_candidate_pose", rt_agg)):
+                    testers_obj[key].add_batch(rt, b["gt_obj_rt"], b["obj_id"], b["cam_intr"],
+                                               valid)
+                row = _host({"pd_obj_rt": rt_agg, "pd_hand_vert": vert_agg,
+                             "pd_hand_joint": joint_agg, "joint_reg_gl": joint_reg * gl,
+                             "vert_reg_gl": vert_reg * gl, "joint_diff_gl": joint_agg * gl,
+                             "vert_diff_gl": vert_agg * gl})
+                row["pd_hand_vert"] = row["pd_hand_vert"].astype(np.float16)
+                keep = np.asarray(valid, bool)
+                row = {k: v[keep] for k, v in row.items()}
+                row["index"] = np.asarray(st.index)[keep]
+                if (row["index"] >= 0).all() and path_of is not None:
+                    row["path"] = [path_of(int(j)) for j in row["index"]]
+                rows.append(row)
+        for t in testers_obj.values():
+            t.gather_rows()
+        order = np.argsort(np.concatenate([r["index"] for r in rows]), kind="stable")
+        cat = lambda key: np.concatenate([r[key] for r in rows], axis=0)[order]
+        submit = os.path.join(self.save_dir, "submit")
+        zips = {name: dump_codalab(cat(f"joint_{kind}_gl"), cat(f"vert_{kind}_gl"),
+                                   os.path.join(submit, f"{epoch_tag}{name}"))
+                for name, kind in (("hand_reg", "reg"), ("hand_diff", "diff"))}
+        for name, p in zips.items():
+            self.logger.info(f"codalab {name}: {p}")
+        report = {k: t.report() for k, t in testers_obj.items()}
+        for variant, table in report.items():
+            self.logger.info(f"object/{variant}:\n" + format_table(table))
+        keep_keys = ("pd_obj_rt", "pd_hand_vert", "pd_hand_joint", "index", "path")
+        collector_res = [{k: r[k] for k in keep_keys if k in r} for r in rows]
+        self.dump_predictions(collector_res, tag=f"-infer{epoch_tag}")
+        return {"report": {"object": report}, "collector_res": collector_res, "zips": zips}

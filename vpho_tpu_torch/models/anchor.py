@@ -26,6 +26,17 @@ _LABEL_LEVEL = {
     "DRT": [22, 24, 23], "DPT": [29, 31, 30],
 }
 
+FINGER_ANCHORS = {
+    "palm": _LABEL_LEVEL["WIM"] + _LABEL_LEVEL["WMM"] + _LABEL_LEVEL["WRM"] + _LABEL_LEVEL["WPM"],
+    "thumb": _LABEL_LEVEL["MTP"] + _LABEL_LEVEL["PTD"] + _LABEL_LEVEL["DTT"],
+    "index": _LABEL_LEVEL["MIP"] + _LABEL_LEVEL["PID"] + _LABEL_LEVEL["DIT"],
+    "middle": _LABEL_LEVEL["MMP"] + _LABEL_LEVEL["PMD"] + _LABEL_LEVEL["DMT"],
+    "ring": _LABEL_LEVEL["MRP"] + _LABEL_LEVEL["PRD"] + _LABEL_LEVEL["DRT"],
+    "pinky": _LABEL_LEVEL["MPP"] + _LABEL_LEVEL["PPD"] + _LABEL_LEVEL["DPT"],
+}
+_FINGER_GROUPS = tuple(FINGER_ANCHORS[k] for k in
+                       ("palm", "thumb", "index", "middle", "ring", "pinky"))
+
 
 def _corresponding_skeleton() -> np.ndarray:
     """(32, 2) skeleton edge per anchor id."""
@@ -123,3 +134,25 @@ def force_local_to_global_np(tables: ForceAnchorTables, force_local, verts):
     point = w[:, 1:2] * b1 + w[:, 2:3] * b2 + tri[:, 0]
     force_global = np.einsum("bi,bji->bj", np.asarray(force_local, np.float64), frame)
     return point.astype(np.float32), force_global.astype(np.float32)
+
+
+def force_global_to_local(tables: ForceAnchorTables, force_global: torch.Tensor,
+                          verts: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``force_local_to_global``: (..., 32, 3) camera-frame forces -> anchor frames."""
+    _, frame = anchor_points_and_frames(tables, verts)
+    return (frame.transpose(-1, -2) * force_global[..., None, :]).sum(-1)
+
+
+def pool_contact_to_anchors_np(tables: ForceAnchorTables, hand_contact) -> np.ndarray:
+    """(..., 778) per-vertex contact -> (..., 32) anchor contact, the barycentric mean over
+    each anchor's triangle (numpy, for the data loaders)."""
+    fvi = tables.face_vert_idx.cpu().numpy().reshape(-1)
+    w = tables.anchor_weight.cpu().numpy()
+    fc = np.asarray(hand_contact)[..., fvi].reshape(np.shape(hand_contact)[:-1] + (32, 3))
+    return (fc * (w / w.sum(axis=1, keepdims=True))).sum(-1)
+
+
+def check_is_grasped_np(force_contact, thresh: float = 0.0) -> bool:
+    """(32,) anchor contact -> whether at least 2 of the 6 hand regions touch."""
+    fc = np.asarray(force_contact)
+    return sum(int(fc[list(g)].sum() > thresh) for g in _FINGER_GROUPS) >= 2

@@ -36,11 +36,18 @@ class MANOModel(NamedTuple):
     J_regressor: torch.Tensor     # (16, 778)
     weights: torch.Tensor         # (778, 16)
     side: str = "right"
+    # host-side (numpy) tables of the data pipeline: mesh topology and the PCA pose basis
+    faces: np.ndarray | None = None             # (1538, 3) int32
+    hands_components: np.ndarray | None = None  # (45, 45) float32
+    hands_mean: np.ndarray | None = None        # (45,) float32
 
 
-def _from_numpy(arrays: dict, side: str, device) -> MANOModel:
+def _from_numpy(arrays: dict, side: str, device, faces, hands_components,
+                hands_mean) -> MANOModel:
     t = {k: torch.as_tensor(np.asarray(v, np.float32), device=device) for k, v in arrays.items()}
-    return MANOModel(side=side, **t)
+    return MANOModel(side=side, faces=np.asarray(faces, np.int32),
+                     hands_components=np.asarray(hands_components, np.float32),
+                     hands_mean=np.asarray(hands_mean, np.float32), **t)
 
 
 def _undo_chumpy(x):
@@ -63,7 +70,8 @@ def load_mano_pkl(path: str, device=None) -> MANOModel:
         posedirs=_undo_chumpy(data["posedirs"]),
         J_regressor=j_reg,
         weights=_undo_chumpy(data["weights"]),
-    ), side, device)
+    ), side, device, data["f"], _undo_chumpy(data["hands_components"]),
+        _undo_chumpy(data["hands_mean"]))
 
 
 def synthetic_mano(seed: int = 0, side: str = "right", device=None) -> MANOModel:
@@ -98,8 +106,11 @@ def synthetic_mano(seed: int = 0, side: str = "right", device=None) -> MANOModel
     weights = w / w.sum(1, keepdims=True)
     shapedirs = rng.randn(NUM_VERTS, 3, NUM_SHAPE) * 0.002
     posedirs = rng.randn(NUM_VERTS, 3, 135) * 0.0005
+    faces = rng.randint(0, NUM_VERTS, size=(1538, 3))
+    comps = np.linalg.qr(rng.randn(45, 45))[0]
     return _from_numpy(dict(v_template=v_template, shapedirs=shapedirs, posedirs=posedirs,
-                            J_regressor=j_reg, weights=weights), side, device)
+                            J_regressor=j_reg, weights=weights), side, device, faces, comps,
+                       np.zeros(45))
 
 
 _DEFAULT_SEARCH = (

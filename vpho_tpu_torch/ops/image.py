@@ -7,6 +7,8 @@ the same formulation, so the numbers match without gathers:
   * ``roi_align``: torchvision ``roi_align`` (aligned=False) with a fixed 2x2 sampling grid
     per bin (DEVIATIONS.md D4)
   * ``resize_bilinear``: ``jax.image.resize(..., "bilinear")``, antialiased when shrinking
+  * ``affine_warp``: ``cv2.warpAffine`` bicubic crops for the device preprocess, as 4-tap
+    gathers (the JAX package's dense weights would be GBs at a full batch)
 Normalized coordinates follow torch's ``grid_sample`` with ``align_corners=False``.
 """
 from __future__ import annotations
@@ -104,3 +106,52 @@ def resize_bilinear(x: torch.Tensor, size: tuple) -> torch.Tensor:
     if W != size[1]:
         x = torch.einsum("bchw,sw->bchs", x, resize_weights(W, size[1], x.device).to(x.dtype))
     return x
+
+
+def _resample(src: torch.Tensor, dim: int, coord: torch.Tensor) -> torch.Tensor:
+    """Keys-cubic resample of ``src`` along ``dim`` at ``coord``, zero outside the image.
+
+    ``coord`` holds one source position per output element: its shape is ``src``'s without the
+    channel axis and with ``dim`` resized.  The kernel is 0 for |d| >= 2, so the four taps
+    floor(coord) - 1 .. floor(coord) + 2 are all of its support; taps outside [0, n) weigh 0.
+    """
+    n = src.shape[dim]
+    base = torch.floor(coord) - 1.0
+    out = None
+    for k in range(4):
+        pos = base + k
+        w = _keys_kernel(pos - coord) * ((pos >= 0) & (pos <= n - 1))
+        idx = pos.clamp(0, n - 1).long()[..., None].expand(coord.shape + (src.shape[-1],))
+        term = torch.gather(src, dim, idx).float() * w[..., None]
+        out = term if out is None else out + term
+    return out
+
+
+def affine_warp(img: torch.Tensor, minv: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Batched inverse-affine warp with ``cv2.warpAffine`` semantics, NHWC.
+
+    img (B, H, W, C), uint8 or float; minv (B, 2, 3) the DST -> SRC affine (the inverse of the
+    matrix given to cv2) -> (B, P, P, C) float32, P = ``out_size``.  Bicubic (Keys, A = -0.75,
+    cv2's INTER_CUBIC), zero border, pixel centres at integer coordinates.
+
+    Two 1-D passes, as the JAX package's ``affine_warp``:
+      * pass 1 resamples every source row h in x, at the column where output column j meets
+        row h: x(h, j) = m00 j + m01 i(h, j) + m02 with i(h, j) = (h - m12 - m10 j) / m11;
+      * pass 2 resamples that in y at each output pixel's source row
+        y(i, j) = m10 j + m11 i + m12.
+    Without rotation (eval crops: m01 = m10 = 0) x depends on j alone and y on i alone, and the
+    passes are the separable bicubic product, cv2's own and the JAX package's rectilinear
+    path.  Under rotation the composition is the JAX package's sheared cubic product (within
+    ~2/255 mean of cv2).  Each pass is four gathers and weighted sums in float32, where the
+    JAX package contracts dense (b, H, P, W) weights, in bfloat16 under rotation.
+    """
+    B, H, W, _ = img.shape
+    P = out_size
+    m = minv.to(device=img.device, dtype=torch.float32)
+    m00, m01, m02 = (m[:, 0, k, None, None] for k in range(3))
+    m10, m11, m12 = (m[:, 1, k, None, None] for k in range(3))
+    jj = torch.arange(P, dtype=torch.float32, device=img.device)
+    hh = torch.arange(H, dtype=torch.float32, device=img.device)
+    i_of = (hh[:, None] - m12 - m10 * jj) / m11                    # (B, H, P)
+    rows = _resample(img, 2, m00 * jj + m01 * i_of + m02)          # (B, H, P, C)
+    return _resample(rows, 1, m10 * jj + m11 * jj[:, None] + m12)  # (B, P, P, C)
