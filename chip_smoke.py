@@ -44,15 +44,17 @@ Phases, one output line each:
               moments and step exactly, and ``--max_epochs 2`` trains the second epoch
   12. data    a mini DexYCB tree (256 frames of 640x480 JPEG, every third hand left) in a
               temporary directory: the decoder, and the loader's items/s at bs 64, patch 256,
-              the default workers, for train and eval, host and device mode, with the contact
-              labels' cache cold and warm
+              its four batches in flight, for train and eval, host and device mode, with the
+              contact labels' cache cold and warm
   13. preprocess the device preprocess (``--device_preprocess``) of a bs-64 device-mode batch:
               ms per batch (CUDA events) and peak memory, eval (rectilinear warp) and train
-              (two-pass warp and the augmentations); on 4 samples, the card against the port on
-              the CPU in float32 with the same erase noise
+              (two-pass warp and the augmentations), and the source rows the warp reads; on 4
+              samples, the card against the port on the CPU in float32 with the same erase
+              noise
   14. data_eval ``--mode eval --eval_full --device_preprocess`` on the tree at the blessed config
-              (bf16): frames/s, split into loader wait / preprocess / predict / metrics per
-              batch, K1 = 50 and K2 = 2 launches a batch, every metric finite
+              (bf16, 4 batches): frames/s over all batches and with the loader's wait taken
+              out; loader wait / preprocess / predict / metrics per batch, K1 = 50 and K2 = 2
+              launches a batch, every metric finite
   15. data_train ``--mode train --max_epochs 1 --device_preprocess`` on the tree (f32, bs 64,
               patch 256, 4 steps, the blessed sub-eval flags): steps/s, loader wait and
               preprocess per step, finite losses, ``epoch_1.state``; the f32 sub-eval runs K2
@@ -780,10 +782,14 @@ def main() -> int:
     from vpho_tpu_torch.data import dexycb as DX
     from vpho_tpu_torch.data.device_pipeline import draw_erase_noise, preprocess_batch
     from vpho_tpu_torch.data.fixtures_disk import build_mini_dexycb, build_mini_ho3d
+    from vpho_tpu_torch.ops.image import warp_source_rows
 
     tmp_root = tempfile.mkdtemp(prefix="vpho_chip_smoke_")
     bs, patch, steps = 64, 256, 50          # the blessed batch, crop and ODE steps
-    n_frames = 4 * bs                       # four batches: the loader's four slots busy
+    # four batches.  The loader keeps LOADER_DEPTH batches in flight and the trainer's prefetch
+    # pulls ~3 more, all during batch 0's seconds (FLOP count, cuDNN tuning): a run this short
+    # never waits on the loader's own rate, which the data phase measures alone
+    n_frames = 4 * bs
     t_start = time.perf_counter()
     dex_root = build_mini_dexycb(os.path.join(tmp_root, "DexYCB"), n=n_frames, seed=31)
     build_s = time.perf_counter() - t_start
@@ -803,10 +809,10 @@ def main() -> int:
                 loader_rate[f"{split}_{mode}_{cache}"] = got / (time.perf_counter() - t_start)
                 check(got == n_frames, f"data {split} {mode}: {got} items")
     say(phase="data", decoder=codec.decoder(), frames=n_frames, frame="640x480 jpg", batch=bs,
-        patch=patch, workers=8, build_s=build_s, items_per_s=loader_rate)
+        patch=patch, in_flight=DX.LOADER_DEPTH, build_s=build_s, items_per_s=loader_rate)
 
     # ---- 13. preprocess: the device preprocess at bs 64 ------------------------------------
-    pre_ms, pre_peak_gb, pre_err = {}, {}, {}
+    pre_ms, pre_peak_gb, pre_err, pre_rows = {}, {}, {}, {}
     for split, is_train in (("eval", False), ("train", True)):
         dcfg = get_config(["--data_dir", dex_root, "--patch_size", str(patch),
                            "--device_preprocess"])
@@ -818,6 +824,7 @@ def main() -> int:
         kw = dict(patch_size=patch, heatmap_size=64, hand_sigma=2.0, obj_sigma=2.0,
                   is_train=is_train)
         run_pre = lambda: preprocess_batch(raw, noise=noise, **kw)
+        pre_rows[split] = warp_source_rows(raw["warp_minv"], patch, raw["rgb_full"].shape[1])
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -840,7 +847,7 @@ def main() -> int:
               f"preprocess {split}: card vs CPU {pre_err[split]}")
         del raw, out, host
     say(phase="preprocess", batch=bs, patch=patch, frame="640x480", ms=pre_ms,
-        peak_mem_gb=pre_peak_gb, card_vs_cpu_max_abs_err=pre_err,
+        peak_mem_gb=pre_peak_gb, source_rows=pre_rows, card_vs_cpu_max_abs_err=pre_err,
         band=dict(rgb=2e-4, heatmaps=1e-5))
 
     # ---- 14. data_eval: --mode eval on the tree, device preprocess, blessed config ---------
@@ -866,12 +873,15 @@ def main() -> int:
     de_values = [v for per in de_report.values() for table in per.values()
                  for row in table.values() for v in row.values()]
     check(de_values and all(math.isfinite(float(v)) for v in de_values), "data_eval metrics")
-    de_split = {k[:-2]: sum(tm[k][1:]) / (n_de - 1) * 1e3
+    de_split = {k[:-2]: [v * 1e3 for v in tm[k]]
                 for k in ("wait_s", "preprocess_s", "predict_s", "metrics_s", "batch_s")}
+    # the predict + metrics rate: the batches after the first (its FLOP count and cuDNN tuning),
+    # loader wait taken out
+    no_wait_s = [b - w for b, w in zip(tm["batch_s"][1:], tm["wait_s"][1:])]
     say(phase="data_eval", frames=n_frames, batches=n_de, batch=bs, dtype="bfloat16",
-        wall_s=de_wall, frames_per_s=sum(tm["frames"][1:]) / sum(tm["batch_s"][1:]),
-        per_batch_ms=de_split, batch0_ms={k[:-2]: tm[k][0] * 1e3 for k in
-                                          ("wait_s", "preprocess_s", "predict_s", "batch_s")},
+        wall_s=de_wall, frames_per_s=sum(tm["frames"]) / sum(tm["batch_s"]),
+        frames_per_s_without_wait=sum(tm["frames"][1:]) / sum(no_wait_s),
+        per_batch_ms=de_split,
         launches=de_launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     del tr_de
     torch.cuda.empty_cache()

@@ -103,9 +103,40 @@ def test_contact_labels_match_jax(trees):
                                JD.vertex_normals(verts, model.faces), rtol=1e-5, atol=1e-6)
 
 
+def test_anchor_host_helpers_match_jax(trees):
+    """The loaders' anchor helpers (contact pooled to the 32 anchors, the grasp test) and
+    ``force_global_to_local``: equal to the JAX package's, and the transpose of
+    ``force_local_to_global`` on the same hand (rtol 1e-5)."""
+    from vpho_tpu.models import anchor as janchor
+    from vpho_tpu_torch.models import anchor as tanchor
+
+    port, jax_ds = _datasets(trees, False, False)
+    rng = np.random.RandomState(5)
+    contact = (rng.rand(3, 778) * (rng.rand(3, 778) < 0.1)).astype(np.float32)
+    contact[2] = 0.0
+    got = tanchor.pool_contact_to_anchors_np(port.tables, contact)
+    np.testing.assert_allclose(got, janchor.pool_contact_to_anchors_np(jax_ds.tables, contact),
+                               rtol=1e-6, atol=0)
+    assert ([tanchor.check_is_grasped_np(c) for c in got]
+            == [janchor.check_is_grasped_np(c) for c in got] == [True, True, False])
+    verts, _ = D.get_hand_vert(rng.randn(45) * 0.3, rng.randn(10) * 0.3, rng.randn(3) * 0.2,
+                               np.array([0.0, 0.01, 0.55]), True)
+    verts = torch.as_tensor(np.asarray(verts, np.float32))
+    fl = torch.as_tensor((rng.randn(2, 32, 3) * 0.1).astype(np.float32))
+    _, fg = tanchor.force_local_to_global(port.tables, fl, verts)
+    back = tanchor.force_global_to_local(port.tables, fg, verts)
+    # the frame's axes are orthogonal but not unit (x = y x z is never renormalized, and the
+    # normalizing eps shortens the mesh's millimetre-scale normals): each local component
+    # comes back scaled by its axis's squared length
+    col_sq = (tanchor.anchor_points_and_frames(port.tables, verts)[1] ** 2).sum(-2)
+    np.testing.assert_allclose(back.numpy(), (fl * col_sq).numpy(), rtol=1e-5, atol=1e-6)
+    ref = janchor.force_global_to_local(jax_ds.tables, fg.numpy(), verts.numpy())
+    np.testing.assert_allclose(back.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+
+
 def test_loader_pads_the_tail_and_indexes_it(trees):
     port, jax_ds = _datasets(trees, False, True)
-    got = list(D.make_loader(port, 3, drop_last=False, num_workers=2))
+    got = list(D.make_loader(port, 3, drop_last=False))
     ref = list(JD.make_loader(jax_ds, 3, drop_last=False, num_workers=2))
     assert len(got) == len(ref) == 2
     for g, r in zip(got, ref):
@@ -116,7 +147,7 @@ def test_loader_pads_the_tail_and_indexes_it(trees):
     np.testing.assert_array_equal(got[1]["_valid"], [True, False, False])
     np.testing.assert_array_equal(got[1]["_index"], [3, 3, 3])   # the padding repeats item 3
     assert got[1]["obj_id"].shape == (3,) and len(set(got[1]["obj_id"])) == 1
-    train = list(D.make_loader(port, 3, shuffle=True, seed=2, num_workers=1))
+    train = list(D.make_loader(port, 3, shuffle=True, seed=2))
     assert len(train) == 1 and "_valid" not in train[0]
 
 

@@ -116,7 +116,7 @@ def inferred(tree, tmp_path_factory):
     argv = ARGV + ["--mode", "infer", "--data_dir", root]
     test_ds = H.HO3DForceDataset(Config(data_dir=root, dataset_name="ho3d", patch_size=64),
                                  root, split="test")
-    batches = list(D.make_loader(test_ds, 2, drop_last=False, num_workers=1))
+    batches = list(D.make_loader(test_ds, 2, drop_last=False))
     for b in batches:
         for k in ("bbox_hand", "bbox_hand_rect", "bbox_obj", "bbox_obj_rect"):
             b[k] = np.tile(WIDE, (2, 1))

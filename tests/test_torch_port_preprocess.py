@@ -118,6 +118,25 @@ def test_rotated_warp_within_the_bf16_band_of_jax_and_matches_cv2():
     assert noise.mean() < 9.0 and noise.max() < 60.0, (noise.mean(), noise.max())
 
 
+def test_warp_reads_only_the_rows_it_reaches():
+    """Pass 1 runs over the batch's window of source rows: crops that reach past the top or
+    the bottom of the frame, or miss it, meet JAX's full-frame warp (rectilinear, 1e-3)."""
+    from vpho_tpu_torch.ops.image import warp_source_rows
+
+    img = _natural(np.random.RandomState(2))[None].repeat(3, 0)
+    A = np.array([[[0.8, 0, 10.0], [0, 0.8, 30.0]],        # rows -38 .. 1: cut at the top
+                  [[1.5, 0, -20.0], [0, 1.5, -150.0]],     # rows 100 .. 121: cut at the bottom
+                  [[1.0, 0, 0.0], [0, 1.0, 200.0]]])        # above the frame: all zero
+    minv = np.stack([np.linalg.inv(np.vstack([a, [0, 0, 1]]))[:2] for a in A]).astype(np.float32)
+    for sel in ([0], [1], [2], [0, 1]):
+        got = affine_warp(t(img[sel]), t(minv[sel]), 32).numpy()
+        ref = np.asarray(jax_warp(img[sel].astype(np.float32), minv[sel], 32, rectilinear=True))
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-3)
+    assert warp_source_rows(t(minv[:1]), 32, 120) == (0, 4)
+    assert warp_source_rows(t(minv[1:2]), 32, 120) == (98, 119)
+    assert not affine_warp(t(img[2:]), t(minv[2:]), 32).any()
+
+
 def test_left_hand_heatmap_shift():
     rng = np.random.RandomState(4)
     pts = (rng.rand(2, 27, 2) * 50 + 5).astype(np.float32)

@@ -675,6 +675,9 @@ def pad_batch_to(batch: Dict[str, np.ndarray], size: int):
             for k, v in batch.items()}, valid
 
 
+LOADER_DEPTH = 4       # batches in flight in ``make_loader``, one thread each
+
+
 def collate(items: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     out = {}
     for k in items[0]:
@@ -684,10 +687,11 @@ def collate(items: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
 
 
 def make_loader(dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
-                subsample: int = 1, num_batches: int | None = None,
-                num_workers: int = 8, drop_last: bool = True) -> Iterator[Dict]:
-    """Collated batches from a thread pool: each batch is built by one worker, up to four
-    batches ahead of the consumer (cv2 and numpy release the GIL in decode and warp).
+                subsample: int = 1, drop_last: bool = True) -> Iterator[Dict]:
+    """Collated batches from a pool of ``LOADER_DEPTH`` threads: each batch is built by one
+    thread, up to ``LOADER_DEPTH`` batches ahead of the consumer (cv2 and numpy release the
+    GIL in decode and warp).  Items are seeded by their index, so the pool does not change
+    what a batch holds.
 
     ``drop_last=False`` (eval) keeps the tail batch, padded to ``batch_size`` by repeating
     its last item; every batch then carries a ``_valid`` mask and the ``_index`` of its
@@ -696,12 +700,7 @@ def make_loader(dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
     idx = np.arange(0, len(dataset), subsample)
     if shuffle:
         np.random.RandomState(seed).shuffle(idx)
-    if num_batches is not None:
-        n = num_batches
-    elif drop_last:
-        n = len(idx) // batch_size
-    else:
-        n = -(-len(idx) // batch_size)
+    n = len(idx) // batch_size if drop_last else -(-len(idx) // batch_size)
 
     def build(bi):
         sel = idx[bi * batch_size:(bi + 1) * batch_size]
@@ -713,9 +712,9 @@ def make_loader(dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
             batch["_valid"] = valid
         return batch
 
-    with ThreadPoolExecutor(max_workers=max(1, num_workers)) as ex:
-        futures = [ex.submit(build, bi) for bi in range(min(n, 4))]
-        next_bi = min(n, 4)
+    with ThreadPoolExecutor(max_workers=LOADER_DEPTH) as ex:
+        futures = [ex.submit(build, bi) for bi in range(min(n, LOADER_DEPTH))]
+        next_bi = len(futures)
         for _ in range(n):
             batch = futures.pop(0).result()
             if next_bi < n:

@@ -493,7 +493,7 @@ class Trainer:
                 return
             wait_s = time.perf_counter() - t0
             batch, span = stager.ready(staged), None
-            if pre is not None and "rgb_full" in batch:
+            if pre is not None:
                 m0 = self._clock.mark()
                 batch = pre(batch, generator=generator)
                 span = (m0, self._clock.mark())

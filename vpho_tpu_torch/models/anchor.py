@@ -26,16 +26,10 @@ _LABEL_LEVEL = {
     "DRT": [22, 24, 23], "DPT": [29, 31, 30],
 }
 
-FINGER_ANCHORS = {
-    "palm": _LABEL_LEVEL["WIM"] + _LABEL_LEVEL["WMM"] + _LABEL_LEVEL["WRM"] + _LABEL_LEVEL["WPM"],
-    "thumb": _LABEL_LEVEL["MTP"] + _LABEL_LEVEL["PTD"] + _LABEL_LEVEL["DTT"],
-    "index": _LABEL_LEVEL["MIP"] + _LABEL_LEVEL["PID"] + _LABEL_LEVEL["DIT"],
-    "middle": _LABEL_LEVEL["MMP"] + _LABEL_LEVEL["PMD"] + _LABEL_LEVEL["DMT"],
-    "ring": _LABEL_LEVEL["MRP"] + _LABEL_LEVEL["PRD"] + _LABEL_LEVEL["DRT"],
-    "pinky": _LABEL_LEVEL["MPP"] + _LABEL_LEVEL["PPD"] + _LABEL_LEVEL["DPT"],
-}
-_FINGER_GROUPS = tuple(FINGER_ANCHORS[k] for k in
-                       ("palm", "thumb", "index", "middle", "ring", "pinky"))
+# the anchors of the six hand regions: palm, thumb, index, middle, ring, pinky
+_FINGER_GROUPS = tuple(sum((_LABEL_LEVEL[k] for k in keys), []) for keys in (
+    ("WIM", "WMM", "WRM", "WPM"), ("MTP", "PTD", "DTT"), ("MIP", "PID", "DIT"),
+    ("MMP", "PMD", "DMT"), ("MRP", "PRD", "DRT"), ("MPP", "PPD", "DPT")))
 
 
 def _corresponding_skeleton() -> np.ndarray:
@@ -138,7 +132,8 @@ def force_local_to_global_np(tables: ForceAnchorTables, force_local, verts):
 
 def force_global_to_local(tables: ForceAnchorTables, force_global: torch.Tensor,
                           verts: torch.Tensor) -> torch.Tensor:
-    """Inverse of ``force_local_to_global``: (..., 32, 3) camera-frame forces -> anchor frames."""
+    """(..., 32, 3) camera-frame forces -> anchor frames, through the frames' transpose.  The x
+    axis is not unit (y x z, never renormalized), so a round trip scales x by |x|^2."""
     _, frame = anchor_points_and_frames(tables, verts)
     return (frame.transpose(-1, -2) * force_global[..., None, :]).sum(-1)
 

@@ -13,6 +13,8 @@ Normalized coordinates follow torch's ``grid_sample`` with ``align_corners=False
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -135,7 +137,8 @@ def affine_warp(img: torch.Tensor, minv: torch.Tensor, out_size: int) -> torch.T
     cv2's INTER_CUBIC), zero border, pixel centres at integer coordinates.
 
     Two 1-D passes, as the JAX package's ``affine_warp``:
-      * pass 1 resamples every source row h in x, at the column where output column j meets
+      * pass 1 resamples each source row h that pass 2 reaches (the batch's window of rows,
+        read on the host from ``minv``) in x, at the column where output column j meets
         row h: x(h, j) = m00 j + m01 i(h, j) + m02 with i(h, j) = (h - m12 - m10 j) / m11;
       * pass 2 resamples that in y at each output pixel's source row
         y(i, j) = m10 j + m11 i + m12.
@@ -148,10 +151,24 @@ def affine_warp(img: torch.Tensor, minv: torch.Tensor, out_size: int) -> torch.T
     B, H, W, _ = img.shape
     P = out_size
     m = minv.to(device=img.device, dtype=torch.float32)
+    lo, hi = warp_source_rows(minv, P, H)
     m00, m01, m02 = (m[:, 0, k, None, None] for k in range(3))
     m10, m11, m12 = (m[:, 1, k, None, None] for k in range(3))
     jj = torch.arange(P, dtype=torch.float32, device=img.device)
-    hh = torch.arange(H, dtype=torch.float32, device=img.device)
-    i_of = (hh[:, None] - m12 - m10 * jj) / m11                    # (B, H, P)
-    rows = _resample(img, 2, m00 * jj + m01 * i_of + m02)          # (B, H, P, C)
-    return _resample(rows, 1, m10 * jj + m11 * jj[:, None] + m12)  # (B, P, P, C)
+    hh = torch.arange(lo, hi + 1, dtype=torch.float32, device=img.device)
+    i_of = (hh[:, None] - m12 - m10 * jj) / m11                    # (B, rows, P)
+    rows = _resample(img[:, lo:hi + 1], 2, m00 * jj + m01 * i_of + m02)
+    return _resample(rows, 1, m10 * jj + m11 * jj[:, None] + m12 - lo)  # (B, P, P, C)
+
+
+def warp_source_rows(minv: torch.Tensor, P: int, H: int) -> tuple:
+    """The source rows [lo, hi] that pass 2 can reach for any sample of the batch: the output
+    square's source rows y = m10 j + m11 i + m12 are extreme at its corners, and a tap reaches
+    one row below floor(y) and two above (one more each side against rounding).  Rows outside
+    the image weigh 0 either way, so the window is clipped to it."""
+    m = minv.detach().to("cpu", torch.float64)[:, 1]                # (B, 3): m10, m11, m12
+    ys = [m[:, 0] * j + m[:, 1] * i + m[:, 2] for i in (0, P - 1) for j in (0, P - 1)]
+    y = torch.stack(ys)
+    lo = min(max(math.floor(y.min().item()) - 2, 0), H - 1)
+    hi = min(max(math.floor(y.max().item()) + 3, lo), H - 1)
+    return lo, hi
