@@ -64,6 +64,14 @@ Phases, one output line each:
               ``evaluation.txt`` order (each zip row is its frame's prediction in the OpenGL
               frame); ``--mode train --max_epochs 1 --full_evaluation_freq 1
               --device_preprocess`` runs ``infer_ho3d`` after its epoch
+  17. force   offline force labels: a bs-64 fixture batch (every third hand left, every fifth
+              sample ungrasped) through ``ForceOptimizer.run_batch`` at the full 3000 iterations:
+              s per batch, iterations/s, peak memory; launches, device ms and busy share per
+              iteration of each phase from a profiled 20-iteration window; the final force loss
+              below the initial one, ungrasped rows 0.  Then bs 8 at 10 + 40 iterations on the
+              card against the CPU (TF32 off), ``force_optim_main`` on a 128-frame mini tree
+              named ``DexYCB`` (every label read back by ``get_force``; no kernel launched), and
+              ``--imagenet_pretrain`` + ``--pretrain x.pth`` through the eval entry point
 Then the card's ``name, power.limit``, the kernels' JSON line and, last, the result line.
 Any failed check raises, so the script exits non-zero and prints no result.  It needs one
 CUDA device and the checkout it sits in; without either it fails.
@@ -979,6 +987,126 @@ def main() -> int:
     shutil.rmtree(tmp_root)
     for name in kernels:
         kernels[name]["launches_by_path"].update(data_eval=de_launches[name])
+
+    # ---- 17. force: offline force labels and the weights read from outside -------------------
+    from vpho_tpu_torch.cli import force_optim_main
+    from vpho_tpu_torch.engine import force_optim as FO
+    from vpho_tpu_torch.models.anchor import ForceAnchorTables
+    from vpho_tpu_torch.utils import weights as WT
+
+    torch.backends.cuda.matmul.allow_tf32 = False          # torch's default, as users get it
+    fctx = V.make_context(V.ModelConfig(), device=dev)
+    tables = fctx.anchor_tables
+    fb = fixtures.make_arrays(fctx, seed=51, batch_size=bs, patch_size=64)
+    fb["force_contact"] = (np.abs(np.random.RandomState(52).randn(bs, 32)) * 0.5).astype(np.float32)
+    fb["is_right"] = np.arange(bs) % 3 != 2                # every third hand left
+    fb["is_grasped"] = (np.arange(bs) % 5 != 4).astype(np.float32)   # every fifth ungrasped
+    fin = {k: torch.as_tensor(fb[k], device=dev) for k in
+           ("force_contact", "gt_hand_vert_flip", "gravity", "obj_CoM")}
+    left = ~torch.as_tensor(fb["is_right"], device=dev)
+    fargs = (fin["force_contact"], fin["gt_hand_vert_flip"],
+             TT.flip_point3d(fin["gravity"], left), TT.flip_point3d(fin["obj_CoM"], left))
+    f0 = FO._losses(torch.full((bs, 32), 0.05, device=dev), torch.zeros((bs, 32, 8), device=dev),
+                    (fargs[0] > 0.1).float(), *fargs, tables)[0].item()
+    # (a) one bs-64 batch at the full iteration counts through ForceOptimizer.run_batch
+    K1.launches = K2.launches = 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    fres = FO.ForceOptimizer(tables).run_batch(fb)   # ends in a copy out
+    force_s = time.perf_counter() - t_start
+    force_peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    check(all(math.isfinite(v) for v in fres["losses"].values()), f"force losses {fres['losses']}")
+    check(fres["losses"]["force"] < f0, f"force loss {fres['losses']['force']} !< initial {f0}")
+    ungrasped = fb["is_grasped"] == 0
+    check(not fres["force_local"][ungrasped].any() and not fres["force_global"][ungrasped].any()
+          and np.abs(fres["force_local"][~ungrasped]).max() > 0, "force: ungrasped rows")
+
+    def force_window(p1, total):
+        """(device launches, device busy ms, wall ms) of one optimize_forces call, profiled."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            FO.optimize_forces(*fargs, tables, p1, total)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        return (sum(e.count for e in ev), sum(e.self_device_time_total for e in ev) / 1e3,
+                wall_ms)
+
+    n_win = 20
+    w0 = force_window(0, 0)                   # set-up and the final losses only
+    per_iter = {}
+    for phase, (p1, total) in (("gravity", (n_win, n_win)), ("balance", (0, n_win))):
+        w = force_window(p1, total)
+        per_iter[phase] = dict(launches=(w[0] - w0[0]) / n_win, device_ms=(w[1] - w0[1]) / n_win,
+                               wall_ms=(w[2] - w0[2]) / n_win,
+                               busy_share=(w[1] - w0[1]) / (w[2] - w0[2]))
+    n1, n2 = FO.PHASE1_ITERS, FO.TOTAL_ITERS - FO.PHASE1_ITERS
+    device_s = (n1 * per_iter["gravity"]["device_ms"] + n2 * per_iter["balance"]["device_ms"]) / 1e3
+    # (b) the card against the port on the CPU, bs 8, 10 + 40 iterations, TF32 off
+    cpu_tables = ForceAnchorTables(*[t.cpu() for t in tables])
+    card8 = FO.optimize_forces(*[a[:8] for a in fargs], tables, 10, 50)
+    cpu8 = FO.optimize_forces(*[a[:8].cpu() for a in fargs], cpu_tables, 10, 50)
+    force_err = {}
+    for k in ("force_local", "force_point", "force_global"):
+        g, r = card8[k].cpu(), cpu8[k]
+        force_err[k] = (g - r).abs().max().item()
+        check(bool(((g - r).abs() <= 1e-5 + 1e-4 * r.abs()).all()), f"force {k}: card vs CPU")
+    for k, v in cpu8["losses"].items():
+        force_err[f"loss_{k}"] = abs(card8["losses"][k].item() / v.item() - 1.0)
+        check(force_err[f"loss_{k}"] <= 1e-4, f"force loss {k}: card vs CPU")
+    # (c) force_optim_main on a mini DexYCB tree named DexYCB, bs 64, full iterations
+    f_root = tempfile.mkdtemp(prefix="vpho_chip_force_")
+    f_dex = build_mini_dexycb(os.path.join(f_root, "DexYCB"), n=2 * bs, seed=53)
+    t_start = time.perf_counter()
+    force_optim_main(["--data_dir", f_dex, "--batch_size", str(bs)])
+    main_s = time.perf_counter() - t_start
+    force_launches = {"bank_mlp": K1.launches, "min_dist": K2.launches}
+    check(force_launches == {"bank_mlp": 0, "min_dist": 0}, f"force launches {force_launches}")
+    fds = DX.DexYCBForceDataset(get_config(["--data_dir", f_dex]), f_dex, is_train=True)
+    n_labels = 0
+    for i in range(len(fds)):
+        rel = fds.get_path(i).replace(".jpg", ".pkl").replace("color_", "hand_force_")
+        with open(os.path.join(f_dex, "cache", "hand_force", rel), "rb") as f:
+            want = pickle.load(f)["force_local"]
+        got = fds.get_force(fds.get_path(i))
+        check(np.isfinite(got).all() and np.array_equal(got, want), f"force label {rel}")
+        n_labels += 1
+    # (d) --imagenet_pretrain and --pretrain x.pth through the entry point
+    src = V.build_model(V.ModelConfig(), seed=61, device="cpu").state_dict()
+    trunk = V.build_model(V.ModelConfig(), seed=62, device="cpu").state_dict()
+    pth, rn50 = os.path.join(f_root, "vpho.pth"), os.path.join(f_root, "resnet50.pth")
+    WT.save_torch_file(src, pth)
+    fe = "feature_extractor"
+    tv = {k.replace(f"{fe}.layer0_h.0.", "conv1.").replace(f"{fe}.layer0_h.1.", "bn1."): v
+          for k, v in trunk.items() if k.startswith(f"{fe}.layer0_h.")}
+    for layer in ("layer1", "layer2", "layer3", "layer4"):
+        head = f"{fe}.{layer}_h.0."
+        tv.update({layer + k[len(head) - 1:]: v for k, v in trunk.items() if k.startswith(head)})
+    torch.save(tv, rn50)
+    tr_w = runner.run(get_config([
+        "--mode", "eval", "--imagenet_pretrain", rn50, "--pretrain", pth,
+        "--remove_pretrained_keys", f"{fe}.layer2_o", "--eval_batch_size", "8", "--sample_num", "4",
+        "--sampling_steps", "2", "--topk_hand", "2", "--topk_obj", "2", "--viz_freq", "-1",
+        "--output_dir", os.path.join("output", "chip_smoke_weights")]))
+    w_bad = [k for k, v in tr_w.model.state_dict().items() if not k.endswith("num_batches_tracked")
+             and not torch.equal(v.cpu(), (trunk[k.replace("layer2_o", "layer2_h")]
+                                           if k.startswith(f"{fe}.layer2_o.") else src[k]))]
+    check(not w_bad, f"pretrain weights differ: {w_bad[:5]}")
+    check(tr_w.last_eval["timing"]["frames"] == [8, 8], "pretrained eval batches")
+    say(phase="force", batch=bs, iterations=FO.TOTAL_ITERS, phase1_iterations=FO.PHASE1_ITERS,
+        s_per_batch=force_s, iterations_per_s=FO.TOTAL_ITERS / force_s,
+        ms_per_iteration=force_s * 1e3 / FO.TOTAL_ITERS, per_iteration=per_iter,
+        busy_share_derived=device_s / force_s, peak_mem_gb=force_peak_gb,
+        initial_force_loss=f0, losses=fres["losses"], card_vs_cpu=force_err,
+        main_frames=2 * bs, main_s=main_s, labels_read_back=n_labels, launches=force_launches,
+        pretrain_keys=len(src), resnet50_keys=len(tv))
+    del tr_w
+    shutil.rmtree(f_root)
+    for name in kernels:
+        kernels[name]["launches_by_path"]["force"] = force_launches[name]
 
     print(card)
     print(json.dumps({"kernels": [kernels["bank_mlp"], kernels["min_dist"]]}))

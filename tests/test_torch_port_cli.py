@@ -50,9 +50,8 @@ def test_eval_path_rescores_a_jax_pkl(runners, tmp_path):
 
 
 def test_runs_the_port_refuses(runners, tmp_path):
-    """What the port still refuses: more than one device, the JAX package's orbax checkpoint
-    directories, reference ``.pth`` files and the torchvision resnet50; and --mode energy, which
-    the reference never implemented."""
+    """What the port still refuses: more than one device and the JAX package's orbax checkpoint
+    directories; and --mode energy, which the reference never implemented."""
     _, torch_run = runners
     with pytest.raises(NotImplementedError, match="not rebuilt"):
         torch_run(["--mode", "energy"] + SMALL)
@@ -61,11 +60,6 @@ def test_runs_the_port_refuses(runners, tmp_path):
                          (["--num_devices", "2"], "num_devices")):
         with pytest.raises(NotImplementedError, match=match):
             torch_run(["--mode", "eval"] + SMALL + flags)
-    (tmp_path / "ref.pth").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match=r"\.pth"):
-        torch_run(["--mode", "eval", "--pretrain", str(tmp_path / "ref.pth")] + SMALL)
-    with pytest.raises(NotImplementedError, match="resnet50"):
-        torch_run(["--mode", "eval", "--imagenet_pretrain", str(tmp_path / "ref.pth")] + SMALL)
 
 
 def test_cli_runs_on_the_gpu_by_default():

@@ -166,3 +166,30 @@ def test_device_preprocess_on_the_card_matches_the_cpu(cuda_device, tmp_path, is
     torch.testing.assert_close(card["rgb"].cpu(), cpu["rgb"], rtol=0, atol=2e-4)
     for k in ("hm_hand", "hm_obj"):
         torch.testing.assert_close(card[k].cpu(), cpu[k], rtol=0, atol=1e-5)
+
+
+def test_force_optim_on_the_card_matches_the_cpu(cuda_device):
+    """``optimize_forces`` (10 + 40 iterations, bs 8, TF32 off) on the card against the port on
+    the CPU, on the CPU parity bars of ``tests/test_torch_port_force.py``: forces within rtol
+    1e-4 / atol 1e-5, the final losses within rtol 1e-4.  A sample without contact gets 0."""
+    from vpho_tpu_torch.data import fixtures
+    from vpho_tpu_torch.engine import force_optim as FO
+    from vpho_tpu_torch.models import vpho as V
+
+    ctx = V.make_context(V.ModelConfig(), device="cpu")
+    arrays = fixtures.make_arrays(ctx, seed=5, batch_size=8, patch_size=64)
+    contact = (np.abs(np.random.RandomState(6).randn(8, 32)) * 0.5).astype(np.float32)
+    contact[3] = 0.0
+    inputs = [torch.from_numpy(a) for a in (contact, arrays["gt_hand_vert_flip"],
+                                            arrays["gravity"], arrays["obj_CoM"])]
+    cpu = FO.optimize_forces(*inputs, ctx.anchor_tables, iters_phase1=10, iters_total=50)
+    tables = type(ctx.anchor_tables)(*[t.to(cuda_device) for t in ctx.anchor_tables])
+    card = FO.optimize_forces(*[t.to(cuda_device) for t in inputs], tables, iters_phase1=10,
+                              iters_total=50)
+    for k in ("force_local", "force_point", "force_global"):
+        assert card[k].device.type == "cuda"
+        np.testing.assert_allclose(card[k].cpu().numpy(), cpu[k].numpy(), rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+    for k, v in cpu["losses"].items():
+        np.testing.assert_allclose(card["losses"][k].item(), v.item(), rtol=1e-4, err_msg=k)
+    assert (card["force_local"][3] == 0).all()

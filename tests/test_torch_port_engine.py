@@ -415,7 +415,7 @@ from vpho_tpu_torch.models.vpho import VPHONet
 from vpho_tpu_torch.utils.weights import load_pretrain
 model = VPHONet()
 rep = load_pretrain(model, sys.argv[1], sys.argv[2:])
-print(len(rep["loaded"]), len(rep["missing"]),
+print(len(rep["imported"]), len(rep["missing"]),
       repr(sum(float(v.double().abs().sum()) for v in model.state_dict().values())))
 """
 

@@ -121,7 +121,8 @@ def test_port_imports_no_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert {'vpho_tpu_torch.cli', 'vpho_tpu_torch.configs.config',\n"
-        "        'vpho_tpu_torch.engine.trainer', 'vpho_tpu_torch.engine.runner'} <= set(names)\n"
+        "        'vpho_tpu_torch.engine.trainer', 'vpho_tpu_torch.engine.runner',\n"
+        "        'vpho_tpu_torch.engine.force_optim'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'vpho_tpu'))\n"
         "assert not bad, bad\n"
     )

@@ -1,8 +1,8 @@
 """Training and evaluation engine (counterpart of ``vpho_tpu/engine/trainer.py``).
 
 ``Trainer(cfg, device)`` builds the constants and, in ``init_state``, the model (seeded
-weights, then ``--pretrain``), the optimizer when it is given the epoch's step count, and the
-``--checkpoint`` state.
+weights, then ``--imagenet_pretrain`` and ``--pretrain``), the optimizer when it is given the
+epoch's step count, and the ``--checkpoint`` state.
 
 Training: ``train_step`` is one forward (``forward_train``, the BN statistics move), backward
 and optimizer update; ``train_one_epoch`` runs it over a stream, its draws and dropout masks
@@ -340,24 +340,29 @@ class Trainer:
     # -- weights -----------------------------------------------------------------------
 
     def init_state(self, steps_per_epoch: Optional[int] = None):
-        """The model with seeded weights (``--random_seed``, else 206), then ``--pretrain``;
+        """The model with seeded weights (``--random_seed``, else 206), then the ResNet-50 of
+        ``--imagenet_pretrain`` when the file exists, then ``--pretrain`` (a reference ``.pth``
+        or the JAX package's ``final_model.pkl``);
         with ``steps_per_epoch`` (training) also the optimizer; then ``--checkpoint``."""
         cfg = self.cfg
         self.model = V.build_model(cfg.to_model_config(), seed=cfg.random_seed or 206,
                                    device=self.device,
                                    cross_attention_axis=cfg.cross_attention_axis)
         if cfg.imagenet_pretrain and os.path.exists(cfg.imagenet_pretrain):
-            raise NotImplementedError(
-                f"--imagenet_pretrain {cfg.imagenet_pretrain}: loading a torchvision resnet50 "
-                f"is not ported yet (ROADMAP section 1, CLI and tooling)")
+            from ..utils.weights import load_resnet50_into_backbone, load_torch_file
+
+            load_resnet50_into_backbone(self.model, load_torch_file(cfg.imagenet_pretrain))
+            self.logger.info(f"Initialized backbone from {cfg.imagenet_pretrain}")
         if cfg.pretrain:
             from ..utils.weights import load_pretrain
 
             rep = load_pretrain(self.model, cfg.pretrain, cfg.remove_pretrained_keys)
             for k in rep["missing"]:
                 self.logger.warning(f"pretrain: missing key {k}")
-            self.logger.info(f"Loaded pretrain {cfg.pretrain}: {len(rep['loaded'])} tensors, "
-                             f"{len(rep['missing'])} missing")
+            for k in rep["unconsumed"][:20]:
+                self.logger.warning(f"pretrain: unconsumed key {k}")
+            self.logger.info(f"Loaded pretrain {cfg.pretrain}: {len(rep['imported'])} imported, "
+                             f"{len(rep['missing'])} missing, {len(rep['unconsumed'])} unconsumed")
         self.logger.info(f"Model params: {param_count(self.model) / 1e6:.2f}M")
         if steps_per_epoch is not None:
             self.optimizer = make_optimizer(cfg, dict(self.model.named_parameters()),

@@ -102,8 +102,12 @@ def force_local_to_global(tables: ForceAnchorTables, force_local: torch.Tensor,
                           verts: torch.Tensor):
     """Returns (force_point, force_global), each (..., 32, 3)."""
     point, frame = anchor_points_and_frames(tables, verts)
-    force_global = (frame * force_local[..., None, :]).sum(-1)
-    return point, force_global
+    return point, frames_to_global(frame, force_local)
+
+
+def frames_to_global(frame: torch.Tensor, force_local: torch.Tensor) -> torch.Tensor:
+    """(..., 32, 3, 3) anchor frames and (..., 32, 3) forces in them -> the camera frame."""
+    return (frame * force_local[..., None, :]).sum(-1)
 
 
 def force_local_to_global_np(tables: ForceAnchorTables, force_local, verts):

@@ -139,11 +139,15 @@ def friction_anchor_dirs(num_anchor: int = 8, friction_coeff: float = 0.8, devic
 
 
 def local_force_from_scale_weight(scale: torch.Tensor, weight: torch.Tensor,
-                                  friction_coeff: float = 0.8) -> torch.Tensor:
+                                  friction_coeff: float = 0.8,
+                                  dirs: torch.Tensor | None = None) -> torch.Tensor:
     """force = normalize(softmax(weight) @ anchor dirs) * |scale| (the reference softmaxes
-    the weight twice; kept)."""
+    the weight twice; kept).  ``dirs``: ``friction_anchor_dirs(8, friction_coeff)`` made
+    once by a caller that runs this in a loop (building it copies from the host)."""
     weight = torch.softmax(weight, dim=-1)
-    direction = weight @ friction_anchor_dirs(8, friction_coeff, weight.device)
+    if dirs is None:
+        dirs = friction_anchor_dirs(8, friction_coeff, weight.device)
+    direction = weight @ dirs
     return T.normalize(direction) * scale.abs()[..., None]
 
 

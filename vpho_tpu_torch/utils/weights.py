@@ -18,8 +18,14 @@ MANO, YCB and anchor tables are constants outside the ``state_dict``.
 trees as nested dicts of numpy arrays (``num_batches_tracked``, which Flax has no slot for, is
 dropped).  ``save_final_model`` pickles them as the JAX package's ``final_model.pkl``.
 
-``load_pretrain(model, path, remove_keys)`` is ``--pretrain`` for the JAX package's
-``final_model.pkl`` (those trees pickled as numpy arrays; no jax needed to read it).
+The weights the JAX package reads from outside (``vpho_tpu/utils/torch_import.py``):
+  * ``load_pretrain(model, path, remove_keys)`` is ``--pretrain``: a reference ``.pth`` (its
+    keys are the port's, less the asset constants), or the JAX package's ``final_model.pkl``
+    merged leaf by leaf (no jax needed to read it);
+  * ``load_resnet50_into_backbone`` is ``--imagenet_pretrain``, a torchvision ResNet-50;
+  * ``export_pkl_to_torch`` writes a ``final_model.pkl`` as a reference ``.pth``:
+
+    python -m vpho_tpu_torch.utils.weights export <final_model.pkl> <out.pth>
 """
 from __future__ import annotations
 
@@ -171,19 +177,10 @@ class _Converter:
         self.sd[tkey + ".bias"] = self.p(*scope, bname)
 
 
-def state_dict_from_jax(variables, skip_missing: bool = False) -> Dict[str, torch.Tensor]:
-    """Flax ``{"params", "batch_stats", "buffers"}`` numpy trees -> torch ``state_dict``.
-    ``skip_missing`` leaves out the modules whose Flax subtree is absent."""
+def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """Flax ``{"params", "batch_stats", "buffers"}`` numpy trees -> torch ``state_dict``."""
     conv = _Converter(variables)
-
-    def do(kind, tkey, *fpath):
-        try:
-            getattr(conv, kind)(tkey, *fpath)
-        except KeyError:
-            if not skip_missing:
-                raise
-
-    _walk(do)
+    _walk(lambda kind, tkey, *fpath: getattr(conv, kind)(tkey, *fpath))
     return {k: torch.from_numpy(np.array(v)) for k, v in conv.sd.items()}
 
 
@@ -281,6 +278,92 @@ def save_final_model(model: torch.nn.Module, path: str) -> None:
         pickle.dump(jax_variables_from_state_dict(model.state_dict()), f)
 
 
+
+
+def save_torch_file(state_dict, path: str) -> None:
+    """``torch.save`` a state_dict of tensors or numpy arrays (the reference's ``.pth``)."""
+    torch.save({k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in state_dict.items()}, path)
+
+
+def load_torch_file(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.pth`` / ``.pt`` state_dict, read on the CPU without unpickling code."""
+    return dict(torch.load(path, map_location="cpu", weights_only=True))
+
+
+def export_pkl_to_torch(pkl_path: str, out_path: str) -> str:
+    """The JAX package's ``final_model.pkl`` -> a reference ``.pth`` (982 keys)."""
+    with open(pkl_path, "rb") as f:
+        variables = pickle.load(f)
+    missing = [c for c in ("params", "batch_stats", "buffers") if c not in variables]
+    if missing:
+        raise ValueError(f"export needs the Flax collections params/batch_stats/buffers; "
+                         f"{pkl_path} lacks {missing} (a params-only pickle cannot be exported; "
+                         f"use the final_model.pkl a run writes)")
+    save_torch_file(state_dict_from_jax(variables), out_path)
+    return out_path
+
+
+# keys of reference checkpoints that the port rebuilds from assets, outside its state_dict
+_CONSTANT_KEYS = ("cross_hand.pose_embedder.pe", "cross_obj.pose_embedder.pe",
+                  "head_physics.anchor")
+_CONSTANT_PREFIXES = ("head_obj.", "head_mano.mano_layer.")
+_BN_KEYS = ("weight", "bias", "running_mean", "running_var")
+
+
+def load_vpho_state_dict(model: torch.nn.Module, state_dict,
+                         remove_keys=()) -> Dict[str, list]:
+    """A reference ``vpho_net`` state_dict into ``model``, as the JAX package imports it: keys
+    under a ``remove_keys`` prefix are dropped first, then a ``module.`` prefix that every key
+    shares, then the asset constants.  A module whose keys are absent keeps its values.
+    Returns the imported and missing modules and the unconsumed keys."""
+    sd = {k: v for k, v in state_dict.items() if not k.startswith(tuple(remove_keys))}
+    if sd and all(k.startswith("module.") for k in sd):
+        sd = {k[len("module."):]: v for k, v in sd.items()}
+    sd = {k: v for k, v in sd.items()
+          if k not in _CONSTANT_KEYS and not k.startswith(_CONSTANT_PREFIXES)}
+    imported, missing = [], []
+
+    def do(kind, tkey, *fpath):
+        probes = (tkey, tkey + ".weight", tkey + ".conv1.weight", tkey + ".in_proj_weight")
+        (imported if any(p in sd for p in probes) else missing).append(tkey)
+
+    _walk(do)
+    own = model.state_dict()
+    prefixes = tuple(t + "." for t in imported)           # a module's keys, or the key itself
+    take = {k: v for k, v in sd.items() if k in own and (k + ".").startswith(prefixes)}
+    model.load_state_dict(take, strict=False)
+    return {"imported": imported, "missing": missing,
+            "unconsumed": sorted(set(sd) - set(take))}
+
+
+def load_resnet50_into_backbone(model: torch.nn.Module, state_dict) -> None:
+    """A torchvision ResNet-50 state_dict into both trunk streams: the stem, ``layer1`` and
+    ``layer4`` into the shared ``_h`` modules, ``layer2`` and ``layer3`` into the ``_h`` and the
+    ``_o`` streams alike.  ``num_batches_tracked`` and ``fc`` are not read."""
+    fe = "feature_extractor"
+    pairs = [("conv1.weight", f"{fe}.layer0_h.0.weight")]
+    pairs += [(f"bn1.{p}", f"{fe}.layer0_h.1.{p}") for p in _BN_KEYS]
+    streams = {"layer1": ("layer1_h",), "layer2": ("layer2_h", "layer2_o"),
+               "layer3": ("layer3_h", "layer3_o"), "layer4": ("layer4_h",)}
+    for layer, n_blocks in (("layer1", 3), ("layer2", 4), ("layer3", 6), ("layer4", 3)):
+        for b in range(n_blocks):
+            names = [f"conv{i}.weight" for i in (1, 2, 3)]
+            names += [f"bn{i}.{p}" for i in (1, 2, 3) for p in _BN_KEYS]
+            if b == 0:
+                names += ["downsample.0.weight"] + [f"downsample.1.{p}" for p in _BN_KEYS]
+            for stream in streams[layer]:
+                pairs += [(f"{layer}.{b}.{n}", f"{fe}.{stream}.0.{b}.{n}") for n in names]
+    own = model.state_dict()
+    with torch.no_grad():
+        for src, dst in pairs:
+            v = torch.as_tensor(state_dict[src])
+            if v.shape != own[dst].shape:
+                raise ValueError(f"resnet50 {src}: shape {tuple(v.shape)}, "
+                                 f"{dst} has {tuple(own[dst].shape)}")
+            own[dst].copy_(v)
+
+
 def _drop_prefixes(tree, remove_keys, path=()):
     """Drop the subtrees whose '/'- or '.'-joined path starts with any prefix."""
     out = {}
@@ -292,19 +375,66 @@ def _drop_prefixes(tree, remove_keys, path=()):
     return out
 
 
+def _leaves(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _merge_final_model(model: torch.nn.Module, saved, remove_keys) -> Dict[str, list]:
+    """The JAX package's non-strict merge of a ``final_model.pkl``: each Flax leaf the pickle
+    has (``remove_keys`` subtrees dropped) replaces the model's, the others stay, a
+    collection the pickle lacks is skipped.  A torch key is imported when any of its leaves
+    came from the pickle (and a BN's ``num_batches_tracked`` with its running mean)."""
+    state = model.state_dict()
+    n_heads = model.cross_hand.attn.layers[0].self_attn.n_heads
+    merged = jax_variables_from_state_dict(state, n_heads)
+    given = jax_variables_from_state_dict(
+        {k: torch.zeros(v.shape, dtype=torch.bool) for k, v in state.items()}, n_heads)
+    unconsumed = []
+    for coll in ("params", "batch_stats", "buffers"):
+        if coll not in saved:
+            continue
+        dst = dict(_leaves(merged[coll]))
+        for path, v in _leaves(_drop_prefixes(saved[coll], tuple(remove_keys))):
+            name = coll + "/" + "/".join(path)
+            if path not in dst:
+                unconsumed.append(name)
+                continue
+            if np.shape(v) != dst[path].shape:
+                raise ValueError(f"--pretrain {name}: shape {np.shape(v)}, the model's "
+                                 f"{dst[path].shape}")
+            _node(merged[coll], path[:-1])[path[-1]] = np.asarray(v)
+            _node(given[coll], path[:-1])[path[-1]] = np.ones(np.shape(v), bool)
+    sd, flags = state_dict_from_jax(merged), state_dict_from_jax(given)
+    counter = "num_batches_tracked"
+    imported = {k for k in sd if bool(flags[k].any()) or (
+        k.endswith(counter) and bool(flags[k[:-len(counter)] + "running_mean"].any()))}
+    model.load_state_dict({k: sd[k] for k in imported}, strict=False)
+    return {"imported": [k for k in sd if k in imported],
+            "missing": [k for k in sd if k not in imported],
+            "unconsumed": unconsumed}
+
+
 def load_pretrain(model: torch.nn.Module, path: str, remove_keys=()) -> Dict[str, list]:
-    """``--pretrain``: load the JAX package's ``final_model.pkl`` (its Flax variables as
-    numpy trees) into ``model``.  ``remove_keys`` drops Flax subtrees by path prefix before
-    the conversion; with none dropped the load is strict.  Returns the loaded, missing and
-    unexpected torch keys."""
+    """``--pretrain``: a reference ``.pth`` / ``.pt`` (``load_vpho_state_dict``) or the JAX
+    package's ``final_model.pkl`` (``_merge_final_model``; no jax needed to read it), each with
+    ``--remove_pretrained_keys``.  Returns the imported, missing and unconsumed names."""
     if path.endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            "--pretrain with a reference .pth checkpoint is not ported yet (ROADMAP section 1, "
-            "CLI and tooling: torch-side .pth import); pass the JAX package's final_model.pkl")
+        return load_vpho_state_dict(model, load_torch_file(path), remove_keys)
     with open(path, "rb") as f:
         saved = pickle.load(f)
-    variables = {coll: _drop_prefixes(saved[coll], tuple(remove_keys))
-                 for coll in ("params", "batch_stats", "buffers")}
-    sd = state_dict_from_jax(variables, skip_missing=bool(remove_keys))
-    missing, unexpected = model.load_state_dict(sd, strict=not remove_keys)
-    return {"loaded": sorted(sd), "missing": list(missing), "unexpected": list(unexpected)}
+    return _merge_final_model(model, saved, remove_keys)
+
+
+if __name__ == "__main__":
+    import sys
+
+    if len(sys.argv) == 4 and sys.argv[1] == "export":
+        print(export_pkl_to_torch(sys.argv[2], sys.argv[3]))
+    else:
+        print("usage: python -m vpho_tpu_torch.utils.weights export <final_model.pkl> <out.pth>",
+              file=sys.stderr)
+        sys.exit(1)
