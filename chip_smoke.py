@@ -45,7 +45,8 @@ Phases, one output line each:
   12. data    a mini DexYCB tree (256 frames of 640x480 JPEG, every third hand left) in a
               temporary directory: the decoder, and the loader's items/s at bs 64, patch 256,
               its four batches in flight, for train and eval, host and device mode, with the
-              contact labels' cache cold and warm
+              contact labels' cache cold and warm; the native host library must be live, and
+              the train passes run once more on its numpy forms
   13. preprocess the device preprocess (``--device_preprocess``) of a bs-64 device-mode batch:
               ms per batch (CUDA events) and peak memory, eval (rectilinear warp) and train
               (two-pass warp and the augmentations), and the source rows the warp reads; on 4
@@ -72,6 +73,11 @@ Phases, one output line each:
               card against the CPU (TF32 off), ``force_optim_main`` on a 128-frame mini tree
               named ``DexYCB`` (every label read back by ``get_force``; no kernel launched), and
               ``--imagenet_pretrain`` + ``--pretrain x.pth`` through the eval entry point
+  18. ddp     data parallelism on the one card (``ddp_phase``): the f32 train step at bs 16,
+              patch 256, TF32 off, in an nccl group of one rank and on two gloo ranks (two
+              processes on cuda:0, 2 x 8) against the undistributed step; the ranks'
+              parameters and BN statistics bit-identical; a blessed eval batch of 64 = 2 x 32
+              with K1 = 50 and K2 = 2 launches a rank and 64 rows gathered
 Then the card's ``name, power.limit``, the kernels' JSON line and, last, the result line.
 Any failed check raises, so the script exits non-zero and prints no result.  It needs one
 CUDA device and the checkout it sits in; without either it fails.
@@ -127,6 +133,223 @@ def spread_weights(model, gen):
         for head in (model.head_hm_hand, model.head_hm_obj):
             head.final_layer.bias.fill_(1.0)
     return model
+
+
+def digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def train_step_record(trainer, batch, draws, masks, rows):
+    """``trainer.train_step`` on ``batch`` with the global draws and masks given; returns the
+    losses, the gradients the optimizer saw (on the host) and the BN statistics after."""
+    import torch
+
+    from vpho_tpu_torch.engine.trainer import _split_state
+    from vpho_tpu_torch.models.layers import DropoutMasks
+
+    dev = trainer.device
+    seen, step = {}, trainer.optimizer.step
+    trainer.optimizer.step = lambda g: (seen.setdefault("g", [x.detach().cpu() for x in g]),
+                                        step(g))[1]
+    losses = trainer.train_step(
+        {k: v.to(dev) for k, v in batch.items()},
+        draws={k: (a.to(dev), b.to(dev)) for k, (a, b) in draws.items()},
+        dropout=DropoutMasks(masks=[m.to(dev) for m in masks], rows=rows))
+    torch.cuda.synchronize()
+    stats = {k: v.cpu() for k, v in _split_state(trainer.model)["batch_stats"].items()
+             if "running" in k}
+    return ({k: v.item() for k, v in losses.items()}, dict(zip(trainer.optimizer.names, seen["g"])),
+            stats)
+
+
+HEADS = ("head_mano", "cross_hand", "cross_obj", "head_physics")
+
+
+def bar_used(ref, run):
+    """train_f32's bars for the train step ``run`` (losses, gradients, BN statistics, as
+    ``train_step_record`` returns them) against ``ref``: the largest share of a bar used by the
+    loss terms (rtol 1e-4), the BN statistics (1e-3 x the largest value) and each module
+    group's gradients (rtol 1e-3 for the heads, 1e-2 for the denoisers, 0.15 for the trunk,
+    plus 1e-4 x the group's largest gradient norm)."""
+    (lr, gr, sr), (l, g, st) = ref, run
+    used = {"losses": max(abs(l[k] - lr[k]) / max(abs(lr[k]), 1e-12) for k in lr) / 1e-4,
+            "bn": max(((st[k] - sr[k]).abs().max() / sr[k].abs().max().clamp_min(1e-12)).item()
+                      for k in sr) / 1e-3}
+    scale = {}
+    for k, r in gr.items():
+        scale[k.split(".")[0]] = max(scale.get(k.split(".")[0], 0.0), r.norm().item())
+    for k, r in gr.items():
+        grp = k.split(".")[0]
+        rtol = 1e-3 if grp in HEADS else 1e-2 if grp.startswith("denoiser") else 0.15
+        used[grp] = max(used.get(grp, 0.0),
+                        (g[k] - r).norm().item() / (rtol * r.norm().item() + 1e-4 * scale[grp]))
+    return used
+
+
+def ddp_rank(dev, work):
+    """One of phase 18's two gloo ranks, both on ``cuda:0``: its rows of the f32 train step, then
+    one blessed eval batch of 64 (its 32 rows) through ``Trainer.evaluate``."""
+    import os
+
+    import torch
+
+    from vpho_tpu_torch.configs.config import get_config
+    from vpho_tpu_torch.engine.runner import synthetic_stream
+    from vpho_tpu_torch.engine.trainer import Trainer
+    from vpho_tpu_torch.ops import bank_mlp as K1
+    from vpho_tpu_torch.ops import min_dist as K2
+    from vpho_tpu_torch.parallel import mesh
+
+    inp = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tr = Trainer(get_config(inp["train_argv"]), dev)
+    tr.init_state(8)
+    tr.model.load_state_dict(inp["sd"])
+    n = inp["batch"]["rgb"].shape[0] // mesh.world_size()
+    lo = mesh.rank() * n
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, grads, stats = train_step_record(
+        tr, {k: v[lo:lo + n] for k, v in inp["batch"].items()}, inp["draws"], inp["masks"],
+        mesh.batch_rows(n))
+    step_s = time.perf_counter() - t0
+    out = {"losses": losses, "step_s": step_s, "params_digest": digest(tr.optimizer.params),
+           "stats_digest": digest(stats.values())}
+    if mesh.rank() == 0:
+        out.update(grads=grads, stats=stats)
+    del tr
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    ecfg = get_config(inp["eval_argv"])
+    te = Trainer(ecfg, dev)
+    te.init_state()
+    te.model.load_state_dict(inp["eval_sd"])
+    K1.launches = K2.launches = 0
+    res = te.evaluate(synthetic_stream(te.ctx, ecfg, 1, 64, seed=53, with_eval_keys=True))
+    torch.cuda.synchronize()
+    out.update(eval_launches={"bank_mlp": K1.launches, "min_dist": K2.launches},
+               eval_rows=sum(len(r["index"]) for r in res["collector_res"]),
+               eval_local_rows=int(64 // mesh.world_size()),
+               eval_report=res["report"], eval_predict_s=res["timing"]["predict_s"])
+    torch.save(out, os.path.join(work, f"rank{mesh.rank()}.pt"))
+
+
+def ddp_phase(dev, card, eval_argv, kernels):
+    """Phase 18: data parallelism (``parallel/mesh.py``) on the one card.  (a) an nccl process
+    group of one rank; (b) two gloo ranks, two processes on cuda:0 (nccl refuses two ranks on
+    one device): the f32 train step at 16 = 2 x 8 against the undistributed step with the same
+    weights, draws and masks (train_f32's bars), the ranks' parameters and BN statistics bit-
+    identical after it, and a blessed eval batch of 64 = 2 x 32 (K1 50 and K2 2 launches a
+    rank, 64 rows gathered).  Two ranks share the card: no scaling figure."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from vpho_tpu_torch.configs.config import get_config
+    from vpho_tpu_torch.data import fixtures
+    from vpho_tpu_torch.engine.trainer import Trainer
+    from vpho_tpu_torch.parallel import mesh
+
+    torch.cuda.empty_cache()
+    ddp_dir = os.path.join("output", "chip_smoke_ddp")
+    ddp_argv = ["--mode", "train", "--batch_size", "16", "--patch_size", "256",
+                "--output_dir", ddp_dir]        # the training defaults: f32, repeat_num 20
+    dcfg = get_config(ddp_argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tr_ref = Trainer(dcfg, dev)
+    tr_ref.init_state(8)
+    gen = torch.Generator().manual_seed(54)
+    with torch.no_grad():
+        for den in (tr_ref.model.denoiser_hand, tr_ref.model.denoiser_obj):
+            l2 = den.head.head[2]
+            l2.weight.copy_(torch.randn(l2.weight.shape, generator=gen) * 0.01)
+            l2.bias.copy_(torch.randn(l2.bias.shape, generator=gen) * 0.01)
+    ddp_sd = {k: v.cpu().clone() for k, v in tr_ref.model.state_dict().items()}
+    ddp_batch = {k: v.cpu() for k, v in fixtures.make_batch(tr_ref.ctx, seed=51, batch_size=16,
+                                                            patch_size=256).items()}
+    R = dcfg.repeat_num
+    ddp_draws = {"hand": (torch.rand(R * 16, 1, generator=gen) * (1 - 1e-5) + 1e-5,
+                          torch.randn(R * 16, 96, generator=gen)),
+                 "obj": (torch.rand(R * 16, 1, generator=gen) * (1 - 1e-5) + 1e-5,
+                         torch.randn(R * 16, 9, generator=gen))}
+    ddp_masks = [torch.rand(shape, generator=gen) < 0.9 for shape in
+                 [(16, 65, 512), (1, 1, 65, 65), (16, 65, 512), (16, 65, 2048), (16, 65, 512)] * 2]
+    ref = train_step_record(tr_ref, ddp_batch, ddp_draws, ddp_masks, None)
+    # the step's own rounding noise: the undistributed step on images moved by one ulp.  At
+    # this size a group of the heads can move past its bar from that alone
+    # (bench_torch_bn_variance.py), so a group may use up to 4x what the nudge uses
+    tr_ref.init_state(8)
+    tr_ref.model.load_state_dict(ddp_sd)
+    nudged = dict(ddp_batch, rgb=torch.nextafter(ddp_batch["rgb"],
+                                                 torch.full_like(ddp_batch["rgb"], float("inf"))))
+    noise = bar_used(ref, train_step_record(tr_ref, nudged, ddp_draws, ddp_masks, None))
+    del tr_ref
+    torch.cuda.empty_cache()
+
+    def held(run, what):
+        used = bar_used(ref, run)
+        over = {g: u for g, u in used.items()
+                if u > (1.0 if g in ("losses", "bn") else max(1.0, 4 * noise[g]))}
+        check(not over, f"{what}: bars used {used}, a 1-ulp nudge uses {noise}")
+        return used
+
+    # (a) nccl, world 1: the gradient all-reduce and the cross-rank BN path
+    mesh.init_distributed(torch.device("cuda", 0), backend="nccl",
+                          init_method=f"tcp://localhost:{mesh.free_port()}", world=1, rank_=0)
+    try:
+        tr_a = Trainer(dcfg, dev)
+        tr_a.init_state(8)
+        tr_a.model.load_state_dict(ddp_sd)
+        nccl_used = held(train_step_record(tr_a, ddp_batch, ddp_draws, ddp_masks,
+                                           mesh.batch_rows(16)), "ddp nccl world 1")
+        del tr_a
+    finally:
+        mesh.shutdown()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+
+    # (b) two gloo ranks with CUDA tensors, two processes on cuda:0
+    work = tempfile.mkdtemp(prefix="vpho_chip_smoke_ddp_")
+    torch.save({"train_argv": ddp_argv, "sd": ddp_sd, "batch": ddp_batch, "draws": ddp_draws,
+                "masks": ddp_masks, "eval_sd": ddp_sd,
+                "eval_argv": eval_argv[:-2] + ["--viz_freq", "-1", "--output_dir", ddp_dir]},
+               os.path.join(work, "inputs.pt"))
+    t_start = time.perf_counter()
+    mesh.spawn(ddp_rank, 2, torch.device("cuda", 0), work, backend="gloo")
+    ddp_wall_s = time.perf_counter() - t_start
+    r0, r1 = (torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False) for r in (0, 1))
+    shutil.rmtree(work)
+    mean_losses = {k: (r0["losses"][k] + r1["losses"][k]) / 2 for k in r0["losses"]}
+    gloo_used = held((mean_losses, r0["grads"], r0["stats"]), "ddp gloo 2 x 8")
+    identical = (r0["params_digest"] == r1["params_digest"]
+                 and r0["stats_digest"] == r1["stats_digest"])
+    rank_launches = [r["eval_launches"] for r in (r0, r1)]
+    say(phase="ddp", card=card, note="two ranks share one card: not a scaling figure",
+        train=dict(batch="16 = 2 x 8", patch=256, repeat_num=R, dtype="float32", tf32=False),
+        nudge_bar_used=noise, nccl_world1_bar_used=nccl_used, gloo_2x8_bar_used=gloo_used,
+        ranks_bit_identical=identical, gloo_step_s=[r0["step_s"], r1["step_s"]],
+        eval=dict(batch="64 = 2 x 32", sample_num=100, steps=50, dtype="bfloat16",
+                  launches_per_rank=rank_launches, rows_gathered=r0["eval_rows"],
+                  predict_s_per_rank=[r0["eval_predict_s"], r1["eval_predict_s"]]),
+        wall_s=ddp_wall_s)
+    check(identical, "ddp: the ranks' parameters or BN statistics differ after the step")
+    check(rank_launches == [{"bank_mlp": 50, "min_dist": 2}] * 2,
+          f"ddp eval launches per rank {rank_launches}")
+    check(r0["eval_rows"] == r1["eval_rows"] == 64 and r0["eval_report"] == r1["eval_report"],
+          f"ddp eval rows {r0['eval_rows']}, {r1['eval_rows']}")
+    for name in kernels:
+        kernels[name]["launches_by_path"]["ddp_eval_per_rank"] = rank_launches[0][name]
 
 
 def main() -> int:
@@ -792,6 +1015,10 @@ def main() -> int:
     from vpho_tpu_torch.data.fixtures_disk import build_mini_dexycb, build_mini_ho3d
     from vpho_tpu_torch.ops.image import warp_source_rows
 
+    from vpho_tpu_torch import native as NAT
+
+    native_live = NAT.has_native()
+    check(native_live, "the native host library is not live")
     tmp_root = tempfile.mkdtemp(prefix="vpho_chip_smoke_")
     bs, patch, steps = 64, 256, 50          # the blessed batch, crop and ODE steps
     # four batches.  The loader keeps LOADER_DEPTH batches in flight and the trainer's prefetch
@@ -816,8 +1043,28 @@ def main() -> int:
                                                     DX.make_loader(ds, bs, drop_last=False)))
                 loader_rate[f"{split}_{mode}_{cache}"] = got / (time.perf_counter() - t_start)
                 check(got == n_frames, f"data {split} {mode}: {got} items")
+    # the same train passes on the numpy forms of the host helpers (the library unbound)
+    numpy_rate = {}
+    bound = NAT._LIB
+    NAT._LIB = None
+    try:
+        for mode, device_mode in (("host", False), ("device", True)):
+            dcfg = get_config(["--data_dir", dex_root, "--patch_size", str(patch)]
+                              + (["--device_preprocess"] if device_mode else []))
+            ds = DX.DexYCBForceDataset(dcfg, dex_root, is_train=True)
+            for cache in ("cold", "warm"):
+                if cache == "cold":
+                    shutil.rmtree(os.path.join(dex_root, "cache", "hand_contact"),
+                                  ignore_errors=True)
+                t_start = time.perf_counter()
+                got = sum(len(b["index"]) for b in DX.make_loader(ds, bs))
+                numpy_rate[f"train_{mode}_{cache}"] = got / (time.perf_counter() - t_start)
+                check(got == n_frames, f"data numpy {mode}: {got} items")
+    finally:
+        NAT._LIB = bound
     say(phase="data", decoder=codec.decoder(), frames=n_frames, frame="640x480 jpg", batch=bs,
-        patch=patch, in_flight=DX.LOADER_DEPTH, build_s=build_s, items_per_s=loader_rate)
+        patch=patch, in_flight=DX.LOADER_DEPTH, build_s=build_s, native=native_live,
+        items_per_s=loader_rate, items_per_s_numpy_forms=numpy_rate)
 
     # ---- 13. preprocess: the device preprocess at bs 64 ------------------------------------
     pre_ms, pre_peak_gb, pre_err, pre_rows = {}, {}, {}, {}
@@ -1107,6 +1354,9 @@ def main() -> int:
     shutil.rmtree(f_root)
     for name in kernels:
         kernels[name]["launches_by_path"]["force"] = force_launches[name]
+
+    # ---- 18. ddp: data parallelism on the one card ----------------------------------------
+    ddp_phase(dev, card, eval_argv, kernels)
 
     print(card)
     print(json.dumps({"kernels": [kernels["bank_mlp"], kernels["min_dist"]]}))

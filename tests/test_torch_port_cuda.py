@@ -193,3 +193,61 @@ def test_force_optim_on_the_card_matches_the_cpu(cuda_device):
     for k, v in cpu["losses"].items():
         np.testing.assert_allclose(card["losses"][k].item(), v.item(), rtol=1e-4, err_msg=k)
     assert (card["force_local"][3] == 0).all()
+
+
+def test_nccl_world_of_one_matches_the_undistributed_step(cuda_device, tmp_path):
+    """``Trainer.train_step`` in an nccl process group of one rank (the gradients through the
+    NCCL all-reduce, batch norm through its cross-rank path) against
+    the same step with no process group, TF32 off, with ``test_torch_port_train``'s bars: loss
+    terms rtol 1e-4; gradients per parameter rtol 1e-3 (heads), 1e-2 (denoisers), 0.15 (trunk:
+    train-mode BN at bs 4 is ill-conditioned, and the two paths sum in other orders) plus
+    1e-4 x the module's largest gradient norm; BN statistics 1e-3 x their largest value."""
+    from vpho_tpu_torch.configs.config import get_config
+    from vpho_tpu_torch.data import fixtures
+    from vpho_tpu_torch.engine.trainer import Trainer, _split_state
+    from vpho_tpu_torch.models.layers import DropoutMasks
+    from vpho_tpu_torch.parallel import mesh
+
+    cfg = get_config(["--mode", "train", "--batch_size", "4", "--patch_size", "64",
+                      "--repeat_num", "2", "--output_dir", str(tmp_path)])
+    gen = torch.Generator().manual_seed(0)
+    masks = [torch.rand(s, generator=gen) < 0.9 for s in
+             [(4, 65, 512), (1, 1, 65, 65), (4, 65, 512), (4, 65, 2048), (4, 65, 512)] * 2]
+    draws = {"hand": (torch.rand(8, 1, generator=gen) * 0.99 + 0.01, torch.randn(8, 96, generator=gen)),
+             "obj": (torch.rand(8, 1, generator=gen) * 0.99 + 0.01, torch.randn(8, 9, generator=gen))}
+    runs, sd = [], None
+    for distributed in (False, True):
+        if distributed:
+            mesh.init_distributed(torch.device("cuda", 0), backend="nccl", world=1, rank_=0,
+                                  init_method=f"tcp://localhost:{mesh.free_port()}")
+        try:
+            trainer = Trainer(cfg, cuda_device)
+            trainer.init_state(8)
+            if sd is None:
+                sd = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+            trainer.model.load_state_dict(sd)
+            batch = fixtures.make_batch(trainer.ctx, seed=0, batch_size=4, patch_size=64)
+            seen, step = {}, trainer.optimizer.step
+            trainer.optimizer.step = lambda g: (seen.setdefault("g", [x.clone() for x in g]),
+                                                step(g))[1]
+            losses = trainer.train_step(
+                batch, draws={k: (a.cuda(), b.cuda()) for k, (a, b) in draws.items()},
+                dropout=DropoutMasks(masks=[m.cuda() for m in masks], rows=mesh.batch_rows(4)))
+            stats = {k: v for k, v in _split_state(trainer.model)["batch_stats"].items()
+                     if "running" in k}
+            runs.append((losses, dict(zip(trainer.optimizer.names, seen["g"])), stats))
+        finally:
+            mesh.shutdown()
+    (l0, g0, s0), (l1, g1, s1) = runs
+    for k in l0:
+        np.testing.assert_allclose(l1[k].item(), l0[k].item(), rtol=1e-4, err_msg=k)
+    scale = {}
+    for k, g in g0.items():
+        scale[k.split(".")[0]] = max(scale.get(k.split(".")[0], 0.0), g.norm().item())
+    heads = ("head_mano", "cross_hand", "cross_obj", "head_physics")
+    for k, g in g0.items():
+        grp = k.split(".")[0]
+        rtol = 1e-3 if grp in heads else 1e-2 if grp.startswith("denoiser") else 0.15
+        assert (g1[k] - g).norm().item() <= rtol * g.norm().item() + 1e-4 * scale[grp], k
+    for k, v in s0.items():
+        assert (s1[k] - v).abs().max().item() <= 1e-3 * v.abs().max().item(), k

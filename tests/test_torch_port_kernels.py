@@ -122,8 +122,9 @@ def test_port_imports_no_jax():
         "    importlib.import_module(name)\n"
         "assert {'vpho_tpu_torch.cli', 'vpho_tpu_torch.configs.config',\n"
         "        'vpho_tpu_torch.engine.trainer', 'vpho_tpu_torch.engine.runner',\n"
-        "        'vpho_tpu_torch.engine.force_optim'} <= set(names)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'vpho_tpu'))\n"
+        "        'vpho_tpu_torch.engine.force_optim', 'vpho_tpu_torch.parallel.mesh'} <= set(names)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'flax', 'optax', 'orbax', 'vpho_tpu'))\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
@@ -136,7 +137,8 @@ def test_port_imports_no_jax():
             if isinstance(node, (ast.Import, ast.ImportFrom)):
                 mods = [a.name for a in node.names] if isinstance(node, ast.Import) \
                     else [node.module or ""]
-                assert not any(m.split(".")[0] in ("jax", "flax", "vpho_tpu") for m in mods), \
+                assert not any(m.split(".")[0] in ("jax", "flax", "optax", "orbax", "vpho_tpu")
+                               for m in mods), \
                     (path, mods)
 
 

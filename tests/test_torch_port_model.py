@@ -208,3 +208,33 @@ def test_port_fixture_batch_runs_predict():
     for k, shape in shapes.items():
         assert tuple(out[k].shape) == shape, k
     assert all(bool(torch.isfinite(v).all()) for v in out.values())
+
+
+def test_head_object_regress_matches_jax():
+    """``HeadObjectRegress`` and ``object_regress_losses`` (which no path calls) against the
+    JAX package's, on ``tests/test_aux.py``'s case with random weights and inputs: rtol 1e-5."""
+    from vpho_tpu.models.heads import HeadObjectRegress as JHead, \
+        object_regress_losses as jax_losses
+    from vpho_tpu_torch.models.heads import HeadObjectRegress, object_regress_losses
+    from vpho_tpu_torch.utils.weights import object_regress_state_dict
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 1024).astype(np.float32)
+    variables = JHead().init(jax.random.PRNGKey(0), jnp.ones((2, 1024)))
+    params = jax.tree.map(lambda v: np.asarray(v) + 0.01 * rng.randn(*v.shape).astype(np.float32),
+                          variables["params"])
+    ref = np.asarray(JHead().apply({"params": params}, x))
+    head = HeadObjectRegress()
+    head.load_state_dict(object_regress_state_dict(params), strict=True)
+    with torch.no_grad():
+        got = head(torch.from_numpy(x))
+    assert got.shape == (2, 9)
+    np.testing.assert_allclose(_np(got), ref, rtol=1e-5, atol=1e-6)
+    gts = [rng.randn(*s).astype(np.float32) for s in ((2, 2048, 3), (2, 27, 3), (2, 9),
+                                                         (2, 2048, 3), (2, 27, 3))]
+    want = jax_losses(ref, *gts)
+    have = object_regress_losses(got, *map(_t, gts))
+    assert set(have) == set(want) == {"obj_reg_vert_loss", "obj_reg_kpt_loss",
+                                      "obj_reg_rot6d_loss", "obj_reg_trans_loss"}
+    for k in want:
+        np.testing.assert_allclose(float(have[k]), float(want[k]), rtol=1e-5, err_msg=k)

@@ -39,6 +39,7 @@ from ..models.mano import MANOModel, load_mano, mano_fk
 from ..models.ycb import load_registry
 from ..native import contact_weight, min_dist
 from ..ops.heatmap import adaptive_bbox_heatmap_np, square_bbox_heatmap_np
+from ..parallel import mesh
 from .augment import ImageAugmentor, normalize_rgb
 from .codec import imread_rgb, require_cv2
 
@@ -663,18 +664,6 @@ def warp_host(rgb: np.ndarray, A2: np.ndarray, P: int) -> np.ndarray:
     return cv2.warpAffine(rgb, A2[:2], (P, P), flags=cv2.INTER_CUBIC)
 
 
-def pad_batch_to(batch: Dict[str, np.ndarray], size: int):
-    """Pad the leading axis to ``size`` by repeating the last sample; returns the batch and
-    a (size,) mask of the real samples."""
-    n = next(iter(batch.values())).shape[0]
-    valid = np.zeros((size,), bool)
-    valid[:n] = True
-    if n == size:
-        return batch, valid
-    return {k: np.concatenate([np.asarray(v), np.repeat(np.asarray(v)[-1:], size - n, axis=0)])
-            for k, v in batch.items()}, valid
-
-
 LOADER_DEPTH = 4       # batches in flight in ``make_loader``, one thread each
 
 
@@ -696,20 +685,33 @@ def make_loader(dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
     ``drop_last=False`` (eval) keeps the tail batch, padded to ``batch_size`` by repeating
     its last item; every batch then carries a ``_valid`` mask and the ``_index`` of its
     dataset items, so each item is scored once.
+
+    On a data-parallel rank (``parallel/mesh.py``) a batch is the rank's rows of the global
+    batch of ``batch_size`` and only their items are built.  An eval batch is padded up to a
+    multiple of the world first; a train batch size must divide by it.
     """
     idx = np.arange(0, len(dataset), subsample)
     if shuffle:
         np.random.RandomState(seed).shuffle(idx)
     n = len(idx) // batch_size if drop_last else -(-len(idx) // batch_size)
+    lo, hi, size = mesh.local_rows(batch_size)
+    if drop_last and size != batch_size:
+        raise ValueError(f"train batch size {batch_size} must be divisible by the "
+                         f"{mesh.world_size()} ranks (set --batch_size or --num_devices)")
+    rows = np.arange(lo, hi)
 
     def build(bi):
         sel = idx[bi * batch_size:(bi + 1) * batch_size]
-        items = [dataset[int(i)] for i in sel]
-        batch = collate(items)
+        take = sel[np.minimum(rows, len(sel) - 1)]
+        built: Dict[int, Dict[str, np.ndarray]] = {}
+        for i in dict.fromkeys(int(i) for i in take):
+            built[i] = dataset[i]
+        batch = collate([built[int(i)] for i in take])
         if not drop_last:
-            batch["_index"] = np.asarray(sel, np.int64)
-            batch, valid = pad_batch_to(batch, batch_size)
-            batch["_valid"] = valid
+            batch["_index"] = np.asarray(take, np.int64)
+            batch["_valid"] = rows < len(sel)
+        if mesh.is_distributed():
+            batch["_n"] = np.full(len(rows), batch_size)     # the global batch's draws' size
         return batch
 
     with ThreadPoolExecutor(max_workers=LOADER_DEPTH) as ex:

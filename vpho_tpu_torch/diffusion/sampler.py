@@ -14,7 +14,7 @@ standard normal) with its own generator, or hands in the array another implement
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterator, List, Optional
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -163,15 +163,19 @@ def ode_sampler(score_fn: ScoreFn, x0: torch.Tensor, sde: SDE, T0: float, num_st
 def score_matching_loss(score_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
                         feat: torch.Tensor, gt_pose: torch.Tensor, sde: SDE, repeat_num: int = 20,
                         random_t: Optional[torch.Tensor] = None, z: Optional[torch.Tensor] = None,
-                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                        generator: Optional[torch.Generator] = None,
+                        rows: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Denoising score-matching loss, the ``repeat_num`` draws folded into the batch axis of one
     denoiser call (DEVIATIONS.md D7).  ``score_fn(feat (N, F), x (N, D), t (N, 1))`` returns the
     score, N = repeat_num * B; row r * B + b is draw r of sample b.
 
     The draws are inputs: ``random_t`` (N, 1), uniform on [eps, 1), and ``z`` (N, D), standard
-    normal; those not given are drawn from ``generator`` (torch's default when None)."""
+    normal; those not given are drawn from ``generator`` (torch's default when None).  With
+    ``rows`` = ``(lo, hi, global_batch)`` (a data-parallel rank's slice of the batch) the draws
+    are made, or given, at the global batch and samples ``lo:hi`` of each draw are used."""
     bs, dim = gt_pose.shape
-    n = repeat_num * bs
+    total = bs if rows is None else rows[2]
+    n = repeat_num * total
     dev = gt_pose.device
     gdev = generator.device if generator is not None else dev
     if random_t is None:
@@ -179,6 +183,10 @@ def score_matching_loss(score_fn: Callable[[torch.Tensor, torch.Tensor, torch.Te
         random_t = u * (1.0 - sde.eps) + sde.eps
     if z is None:
         z = torch.randn((n, dim), generator=generator, device=gdev).to(dev)
+    if rows is not None:
+        take = lambda d: d.reshape(repeat_num, total, -1)[:, rows[0]:rows[1]].reshape(
+            repeat_num * bs, -1)
+        random_t, z, n = take(random_t), take(z), repeat_num * bs
     gt_r = gt_pose.repeat(repeat_num, 1)
     mu, std = sde.marginal_prob(gt_r, random_t)
     std = std.reshape(n, 1)

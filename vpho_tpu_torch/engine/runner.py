@@ -11,6 +11,10 @@ The data comes from, in this order:
   3. else the synthetic fixture stream: 8 training batches an epoch.
 Each epoch is followed by a checkpoint, the sub-eval (or HO3D's inference) and
 ``final_model.pkl``.
+
+Ranks: under torchrun every process is a rank of its world; else ``--num_devices N`` > 1
+(0 = every visible card) spawns N ranks on this host.  Each rank's streams hold its rows of the
+global batches (``parallel/mesh.py``).
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 
 from ..configs.config import Config
 from ..data.fixtures import make_arrays
+from ..parallel import mesh
 from ..utils import transforms as T
 from ..utils.platform import resolve_device
 from .trainer import Trainer, postprocess_hand_vert
@@ -44,14 +49,15 @@ def _augment_eval_keys(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 def synthetic_stream(ctx, cfg: Config, n_batches: int, batch_size: int, seed: int = 0,
                      with_eval_keys: bool = False) -> Iterator[Dict[str, np.ndarray]]:
-    """Host batches of the synthetic fixture, seeded ``seed + i``."""
+    """Host batches of the synthetic fixture, seeded ``seed + i``; on a data-parallel rank its
+    rows of each."""
     for i in range(n_batches):
         batch = make_arrays(ctx, seed + i, batch_size, cfg.patch_size)
         if with_eval_keys:
             batch = _augment_eval_keys(batch)
             batch["_index"] = np.arange(i * batch_size, (i + 1) * batch_size)
             batch["_valid"] = np.ones((batch_size,), bool)
-        yield batch
+        yield mesh.take_rows(batch)
 
 
 def _has_real_data(cfg: Config) -> bool:
@@ -62,10 +68,37 @@ def _has_real_data(cfg: Config) -> bool:
         os.path.exists(os.path.join(cfg.data_dir, "dex_ycb_s0_train_data.json"))
 
 
+def _run_rank(device: torch.device, cfg: Config):
+    run(cfg, device)
+
+
 def run(cfg: Config, device=None):
     """Run ``cfg``'s mode on ``device`` (``cuda`` unless the caller asks for the CPU).
-    Returns the re-scored report for ``--eval_path``, else the Trainer."""
+    Returns the re-scored report for ``--eval_path``, None in the process that spawned the
+    ``--num_devices`` ranks, else the Trainer.
+
+    A process group that is already up is used as it is; else torchrun's environment brings
+    one up for the run; else ``--num_devices`` > 1 spawns that many ranks (gloo ranks on the
+    CPU)."""
     device = resolve_device(device)
+    if not cfg.eval_path and cfg.mode != "energy" and not mesh.is_distributed():
+        device = mesh.init_distributed(device)
+        if mesh.is_distributed():
+            try:
+                if cfg.num_devices > 0 and cfg.num_devices != mesh.world_size():
+                    raise ValueError(f"--num_devices {cfg.num_devices}: torchrun started "
+                                     f"{mesh.world_size()} ranks")
+                return _run(cfg, device)
+            finally:
+                mesh.shutdown()
+        n = mesh.resolve_num_devices(cfg.num_devices, device)
+        if n > 1:
+            mesh.spawn(_run_rank, n, device, cfg)
+            return None
+    return _run(cfg, device)
+
+
+def _run(cfg: Config, device: torch.device):
     if cfg.eval_path:
         from ..models.ycb import load_registry
         from .tester import evaluate_prediction_pkl
@@ -79,6 +112,9 @@ def run(cfg: Config, device=None):
         raise NotImplementedError(
             "--mode energy is non-functional in the reference "
             "(zhoujun-7/VPHO main.py:14-15) and intentionally not rebuilt")
+    if cfg.mode == "train" and cfg.batch_size % mesh.world_size():
+        raise ValueError(f"train batch size {cfg.batch_size} must be divisible by the "
+                         f"{mesh.world_size()} ranks (set --batch_size or --num_devices)")
     trainer = Trainer(cfg, device)
     log = trainer.logger
     if cfg.eval_repeat_num != 50:

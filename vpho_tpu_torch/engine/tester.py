@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..models.ycb import YCBRegistry
+from ..parallel import mesh
 from . import metrics as M
 
 DIST_KEYS = ("MCE", "MCE2", "SMCE", "OCE", "ADD", "ADDS", "CD")
@@ -41,7 +42,11 @@ class _Rows:
         self._rows: list[dict] = []
 
     def gather_rows(self):
-        """Pool every process's rows before reporting: the identity for one process."""
+        """Pool every rank's rows before reporting (``mesh.allgather_rows``: batch i's rows of
+        every rank, joined in rank order); the identity for one process."""
+        if mesh.is_distributed():
+            self._rows = [{k: torch.from_numpy(v) for k, v in r.items()}
+                          for r in mesh.allgather_rows(self._rows)]
 
     def _cat(self) -> Dict[str, np.ndarray]:
         cat = {k: torch.cat([r[k] for r in self._rows]).cpu().numpy() for k in self._rows[0]}

@@ -30,7 +30,16 @@ With ``--device_preprocess`` the loaders ship decoded frames and the batch's pix
 regression and the aggregated hands in the OpenGL frame as two zips in ``evaluation.txt``
 order, and the prediction pkl.
 
-Orbax checkpoints and multi-device runs are later slices.
+Data parallelism (``parallel/mesh.py``): while a process group is up every rank holds its slice
+of each global batch (the loaders build only those rows).  A train step draws its randomness at
+the global batch and takes its rows, its batch norm uses the global statistics, and the
+gradients are averaged over ranks before the optimizer, so every rank applies the global
+batch's update.  An eval batch's ODE start state is drawn the same way; the metric and dump
+rows are pooled across ranks before the report, padding masked by ``_valid``.  Rank 0 writes
+the log, checkpoints, ``final_model.pkl``, the pkls, viz and zips; the others wait for it.
+
+The JAX package's orbax ``epoch_N.state`` directories are read through ``orbax_to_torch.py``
+(at the checkout's root, where JAX is installed), which writes the port's own file.
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ from ..data.prefetch import DeviceStager, prefetch
 from ..models import anchor as anchor_lib
 from ..models import vpho as V
 from ..models.layers import DropoutMasks
+from ..parallel import mesh
 from ..utils import transforms as T
 from ..utils.platform import resolve_device
 from . import viz
@@ -203,21 +213,23 @@ def _split_state(model: torch.nn.Module) -> Dict[str, Dict[str, torch.Tensor]]:
     return out
 
 
-def setup_logger(save_dir: str, name: str = "vpho_torch") -> logging.Logger:
-    """File (``<save_dir>/info.log``) and console logging."""
-    os.makedirs(save_dir, exist_ok=True)
+def setup_logger(save_dir: str, name: str = "vpho_torch", main: bool = True) -> logging.Logger:
+    """File (``<save_dir>/info.log``) and console logging; on a rank other than the main one,
+    warnings to the console only."""
     logger = logging.getLogger(name)
-    logger.setLevel(logging.INFO)
+    logger.setLevel(logging.INFO if main else logging.WARNING)
     for h in list(logger.handlers):
         logger.removeHandler(h)
         h.close()
     fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
-    fh = logging.FileHandler(os.path.join(save_dir, "info.log"))
-    fh.setFormatter(fmt)
     sh = logging.StreamHandler(sys.stdout)
     sh.setFormatter(fmt)
-    logger.addHandler(fh)
     logger.addHandler(sh)
+    if main:
+        os.makedirs(save_dir, exist_ok=True)
+        fh = logging.FileHandler(os.path.join(save_dir, "info.log"))
+        fh.setFormatter(fmt)
+        logger.addHandler(fh)
     return logger
 
 
@@ -248,17 +260,19 @@ def _host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return out
 
 
-def _filter_rows(rows, path_of):
-    """Drop padded samples; turn the ``_index`` column into ``index`` (and ``path``)."""
+def _filter_rows(rows, path_of, keep_index: bool = False):
+    """Drop padded samples; turn the ``_index`` column into ``index`` (and ``path``), always
+    with ``keep_index``, else when every kept sample has one."""
     filtered = []
     for r in rows:
         keep = np.asarray(r.pop("_valid"), bool)
         idx = np.asarray(r.pop("_index"))[keep]
         row = {k: np.asarray(v)[keep] for k, v in r.items()}
-        if (idx >= 0).all():
+        has_index = bool((idx >= 0).all())
+        if has_index or keep_index:
             row["index"] = idx
-            if path_of is not None:
-                row["path"] = [path_of(int(j)) for j in idx]
+        if has_index and path_of is not None:
+            row["path"] = [path_of(int(j)) for j in idx]
         filtered.append(row)
     return filtered
 
@@ -295,6 +309,7 @@ class _Staged(NamedTuple):
     batch: Dict[str, torch.Tensor]
     valid: np.ndarray
     index: np.ndarray
+    global_n: Optional[int]             # a data-parallel rank's global batch size, else None
     wait_s: float                       # host seconds waiting for the loader
     pre_span: Optional[tuple]           # the device preprocess's clock marks, or None
 
@@ -305,19 +320,21 @@ class Trainer:
     def __init__(self, cfg: Config, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        if cfg.num_devices > 1:
-            raise NotImplementedError("--num_devices > 1 is not ported yet (ROADMAP section 1, "
-                                      "multi-GPU training via torch DDP)")
         if cfg.checkpoint and os.path.isdir(cfg.checkpoint):
             raise NotImplementedError(
                 f"--checkpoint {cfg.checkpoint}: an orbax checkpoint directory of the JAX "
-                f"package; reading orbax is not ported (ROADMAP section 1, CLI and tooling). "
-                f"The port resumes from its own epoch_N.state files")
+                f"package, which the port does not read.  Convert it where JAX is installed: "
+                f"python orbax_to_torch.py {cfg.checkpoint} <out>/epoch_N.state, then pass "
+                f"the file to --checkpoint")
+        if mesh.world_size() > 1 and cfg.cross_attention_axis == "batch":
+            raise NotImplementedError(
+                "--cross_attention_axis batch attends across the samples of a batch, and a "
+                "data-parallel rank holds only its slice: run it on one device")
         T.set_quat_mean_impl(cfg.quat_mean_impl)
-        stamp = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
+        stamp = mesh.broadcast_object(datetime.datetime.now().strftime("%Y%m%d-%H%M%S"))
         self.save_dir = os.path.join(cfg.output_dir,
                                      f"{stamp}_{cfg.mark}_{cfg.mode}_{cfg.model}")
-        self.logger = setup_logger(self.save_dir)
+        self.logger = setup_logger(self.save_dir, main=mesh.is_main())
         self.ctx = V.make_context(cfg.to_model_config(), cfg.mano_root or None,
                                   cfg.models_dir or None, device=self.device)
         self.tester_hand_keys = ("regression", "one_candidate", "agg_candidate")
@@ -374,10 +391,12 @@ class Trainer:
         """``<run>/checkpoint/epoch_N.state``: params, BN statistics, buffers, optimizer state
         and step."""
         path = os.path.join(self.save_dir, "checkpoint", f"epoch_{epoch}.state")
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        opt = self.optimizer.state_dict() if self.optimizer is not None else None
-        torch.save({**_split_state(self.model), "opt_state": opt, "step": self.step}, path)
-        self.logger.info(f"Saved checkpoint: {path}")
+        if mesh.is_main():
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            opt = self.optimizer.state_dict() if self.optimizer is not None else None
+            torch.save({**_split_state(self.model), "opt_state": opt, "step": self.step}, path)
+            self.logger.info(f"Saved checkpoint: {path}")
+        mesh.sync_processes()
         return path
 
     def load_checkpoint(self, path: str) -> None:
@@ -397,8 +416,10 @@ class Trainer:
         from ..utils.weights import save_final_model
 
         path = os.path.join(self.save_dir, "final_model.pkl")
-        save_final_model(self.model, path)
-        self.logger.info(f"Saved final model: {path}")
+        if mesh.is_main():
+            save_final_model(self.model, path)
+            self.logger.info(f"Saved final model: {path}")
+        mesh.sync_processes()
         return path
 
     # -- training ----------------------------------------------------------------------
@@ -409,14 +430,18 @@ class Trainer:
                    dropout: Optional[DropoutMasks] = None) -> Dict[str, torch.Tensor]:
         """One step on a device batch: ``forward_train`` (the BN statistics move), the
         gradients of the total loss, the optimizer.  Draws and dropout masks as
-        ``forward_train`` takes them.  Returns the weighted losses, detached."""
+        ``forward_train`` takes them (at the global batch on a data-parallel rank, whose
+        gradients are then averaged over the ranks).  Returns this rank's weighted losses,
+        detached."""
         params = self.optimizer.params
+        rows = mesh.batch_rows(int(batch["rgb"].shape[0]))
         m0 = self._clock.mark()
         total, losses = V.forward_train(self.model, self.ctx, batch, draws=draws,
-                                        dropout=dropout, generator=generator)
+                                        dropout=dropout, generator=generator, rows=rows)
         m1 = self._clock.mark()
         grads = torch.autograd.grad(total, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        mesh.allreduce_mean_(grads)
         m2 = self._clock.mark()
         self.optimizer.step(grads)
         self._train_marks.append((m0, m1, m2, self._clock.mark()))
@@ -447,7 +472,8 @@ class Trainer:
             waits.append(st.wait_s)
             last = self.train_step(st.batch, generator=gen)
             if i % max(self.cfg.print_freq, 1) == 0:
-                vals = torch.stack([v.float() for v in last.values()]).cpu().tolist()
+                vals = mesh.mean_over_ranks(torch.stack([v.float() for v in last.values()])
+                                            ).cpu().tolist()
                 self.logger.info(f"[{i:04d}/{steps_per_epoch}] " + " ".join(
                     f"{k.replace('_loss', '')}:{v:.2e}" for k, v in zip(last, vals)))
         if self.device.type == "cuda":
@@ -455,7 +481,8 @@ class Trainer:
         seconds = time.perf_counter() - t0
         timing = self.train_timing()
         split = {k: 1e3 * sum(v) / max(len(v), 1) for k, v in timing.items()}
-        losses = dict(zip(last, torch.stack([v.float() for v in last.values()]).cpu().tolist()))
+        losses = dict(zip(last, mesh.mean_over_ranks(
+            torch.stack([v.float() for v in last.values()])).cpu().tolist()))
         self.last_train = {"seconds": seconds, "steps": len(timing["forward_s"]),
                            "losses": losses, **timing, "wait_s": waits,
                            "preprocess_s": [self._clock.seconds(*sp) if sp else 0.0
@@ -466,12 +493,17 @@ class Trainer:
 
     # -- loops -------------------------------------------------------------------------
 
-    def _x0(self, i: int, batch_size: int, x0_for: Optional[X0Fn]) -> torch.Tensor:
+    def _x0(self, i: int, st: "_Staged", x0_for: Optional[X0Fn]) -> torch.Tensor:
+        """Batch i's ODE start state, drawn at the global batch (before any padding for the
+        ranks); a data-parallel rank takes its rows."""
+        n_local = int(st.batch["rgb"].shape[0])
+        n = st.global_n or n_local
         if x0_for is not None:
-            return torch.as_tensor(x0_for(i, batch_size), dtype=torch.float32,
-                                   device=self.device)
-        gen = torch.Generator(device=self.device).manual_seed(128 + i)
-        return V.draw_x0(self.ctx, batch_size, gen)
+            x0 = torch.as_tensor(x0_for(i, n), dtype=torch.float32, device=self.device)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(128 + i)
+            x0 = V.draw_x0(self.ctx, n, gen)
+        return mesh.rows_of_global(x0, n, n_local, per_row=self.ctx.cfg.sample_num)
 
     def _staged(self, batches: Iterable[Dict[str, Any]], is_train: bool = False,
                 generator: Optional[torch.Generator] = None) -> Iterator["_Staged"]:
@@ -484,16 +516,18 @@ class Trainer:
         def stage(batch):
             batch = dict(batch)
             valid, index = batch.pop("_valid", None), batch.pop("_index", None)
+            global_n = batch.pop("_n", None)
             n = len(next(iter(batch.values())))
             valid = np.ones(n, bool) if valid is None else np.asarray(valid, bool)
             index = np.full(n, -1) if index is None else np.asarray(index)
-            return stager.stage(batch), valid, index
+            global_n = None if global_n is None else int(global_n[0])
+            return stager.stage(batch), valid, index, global_n
 
         it = iter(prefetch(batches, stage))
         while True:
             t0 = time.perf_counter()
             try:
-                staged, valid, index = next(it)
+                staged, valid, index, global_n = next(it)
             except StopIteration:
                 return
             wait_s = time.perf_counter() - t0
@@ -502,7 +536,7 @@ class Trainer:
                 m0 = self._clock.mark()
                 batch = pre(batch, generator=generator)
                 span = (m0, self._clock.mark())
-            yield _Staged(batch, valid, index, wait_s, span)
+            yield _Staged(batch, valid, index, global_n, wait_s, span)
 
     def _eval_path_of(self):
         return self.eval_dataset.get_path if self.eval_dataset is not None else None
@@ -517,7 +551,7 @@ class Trainer:
                              f"({cost['kernel_flops'] / 1e9:.2f} in the CUDA kernels), "
                              f"{param_count(self.model) / 1e6:.2f}M params")
             return pd
-        if i == 1 and self.cfg.trace_dir and not self._trace_done:
+        if i == 1 and self.cfg.trace_dir and not self._trace_done and mesh.is_main():
             try:
                 with trace(self.cfg.trace_dir) as tr:
                     pd = run()
@@ -549,7 +583,7 @@ class Trainer:
         with torch.inference_mode():
             for i, st in enumerate(self._staged(batches)):
                 b, valid, index = st.batch, st.valid, st.index
-                x0 = self._x0(i, b["rgb"].shape[0], x0_for)
+                x0 = self._x0(i, st, x0_for)
                 m0 = clock.mark()
                 pd = self._predict(i, b, x0)
                 m1 = clock.mark()
@@ -577,7 +611,7 @@ class Trainer:
                              "obj_id": b["obj_id"].int()})
                 row["pd_hand_vert"] = row["pd_hand_vert"].astype(np.float16)
                 collector_res.append({**row, "_valid": valid, "_index": index})
-                if self.cfg.viz_freq > 0 and i % self.cfg.viz_freq == 0:
+                if self.cfg.viz_freq > 0 and i % self.cfg.viz_freq == 0 and mesh.is_main():
                     self._viz(i, b, pd, pd_vert_agg, pd_rt_agg)
                 t_now = time.perf_counter()
                 timing["wait_s"].append(st.wait_s)
@@ -599,7 +633,9 @@ class Trainer:
             for variant, table in per.items():
                 self.logger.info(f"{group}/{variant}:\n" + format_table(table))
         self.last_eval = {"report": report,
-                          "collector_res": _filter_rows(collector_res, path_of), "timing": timing}
+                          "collector_res": _filter_rows(mesh.allgather_rows(collector_res),
+                                                        path_of),
+                          "timing": timing}
         return self.last_eval
 
     def _viz(self, i: int, b, pd, pd_vert_agg, pd_rt_agg):
@@ -648,9 +684,11 @@ class Trainer:
         """The my-prediction pkl."""
         path = os.path.join(self.save_dir,
                             f"my-prediction_align-{self.cfg.clean_data_mode}{tag}.pkl")
-        with open(path, "wb") as f:
-            pickle.dump(collector_res, f)
-        self.logger.info(f"Dumped predictions: {path}")
+        if mesh.is_main():
+            with open(path, "wb") as f:
+                pickle.dump(collector_res, f)
+            self.logger.info(f"Dumped predictions: {path}")
+        mesh.sync_processes()
         return path
 
     def infer_candidates(self, batches: Iterable[Dict[str, Any]], path_of=None,
@@ -663,7 +701,7 @@ class Trainer:
         with torch.inference_mode():
             for i, st in enumerate(self._staged(batches)):
                 b, valid, index = st.batch, st.valid, st.index
-                x0 = self._x0(i, b["rgb"].shape[0], x0_for)
+                x0 = self._x0(i, st, x0_for)
                 pd, _ = V.forward_candidates(self.model, self.ctx, b, x0=x0)
                 row = _host({"diff_hand_mano": pd["diff_final_hand_mano"],
                              "diff_obj_6d": pd["diff_final_obj_6d"],
@@ -675,9 +713,12 @@ class Trainer:
                 rows.append({**row, "_valid": valid, "_index": index})
         path = os.path.join(self.save_dir,
                             f"my-candidates_align-{self.cfg.clean_data_mode}.pkl")
-        with open(path, "wb") as f:
-            pickle.dump(_filter_rows(rows, path_of), f)
-        self.logger.info(f"Dumped candidates: {path}")
+        rows = _filter_rows(mesh.allgather_rows(rows), path_of)
+        if mesh.is_main():
+            with open(path, "wb") as f:
+                pickle.dump(rows, f)
+            self.logger.info(f"Dumped candidates: {path}")
+        mesh.sync_processes()
         return path
 
     def infer_ho3d(self, batches: Iterable[Dict[str, Any]], path_of=None, epoch_tag: str = "",
@@ -697,7 +738,7 @@ class Trainer:
         with torch.inference_mode():
             for i, st in enumerate(self._staged(batches)):
                 b, valid = st.batch, st.valid
-                pd = self._predict(i, b, self._x0(i, b["rgb"].shape[0], x0_for))
+                pd = self._predict(i, b, self._x0(i, st, x0_for))
                 root, is_right = b["root_joint"], b["is_right"].bool()
                 hv = lambda v: postprocess_hand_vert(v, root, is_right)
                 joint_reg, vert_reg = hv(pd["reg_hand_joint"]), hv(pd["reg_hand_vert"])
@@ -713,20 +754,18 @@ class Trainer:
                              "vert_reg_gl": vert_reg * gl, "joint_diff_gl": joint_agg * gl,
                              "vert_diff_gl": vert_agg * gl})
                 row["pd_hand_vert"] = row["pd_hand_vert"].astype(np.float16)
-                keep = np.asarray(valid, bool)
-                row = {k: v[keep] for k, v in row.items()}
-                row["index"] = np.asarray(st.index)[keep]
-                if (row["index"] >= 0).all() and path_of is not None:
-                    row["path"] = [path_of(int(j)) for j in row["index"]]
-                rows.append(row)
+                rows.append({**row, "_valid": valid, "_index": st.index})
         for t in testers_obj.values():
             t.gather_rows()
+        rows = _filter_rows(mesh.allgather_rows(rows), path_of, keep_index=True)
         order = np.argsort(np.concatenate([r["index"] for r in rows]), kind="stable")
         cat = lambda key: np.concatenate([r[key] for r in rows], axis=0)[order]
         submit = os.path.join(self.save_dir, "submit")
-        zips = {name: dump_codalab(cat(f"joint_{kind}_gl"), cat(f"vert_{kind}_gl"),
-                                   os.path.join(submit, f"{epoch_tag}{name}"))
-                for name, kind in (("hand_reg", "reg"), ("hand_diff", "diff"))}
+        zips = {}
+        if mesh.is_main():
+            zips = {name: dump_codalab(cat(f"joint_{kind}_gl"), cat(f"vert_{kind}_gl"),
+                                       os.path.join(submit, f"{epoch_tag}{name}"))
+                    for name, kind in (("hand_reg", "reg"), ("hand_diff", "diff"))}
         for name, p in zips.items():
             self.logger.info(f"codalab {name}: {p}")
         report = {k: t.report() for k, t in testers_obj.items()}

@@ -33,7 +33,10 @@ class HeadMano(nn.Module):
 def mano_losses(pd_pose, pd_shape, pd_vert, pd_joint, gt_pose, gt_shape, gt_vert, gt_joint,
                 is_right) -> Dict[str, torch.Tensor]:
     """Vertex and joint MSE, the pose loss in rot6d space, and the shape loss over right hands
-    only, rescaled by the right-hand count over the batch (as the reference does)."""
+    only, rescaled by the right-hand count over the batch (as the reference does).  The count
+    cancels: the shape loss is the sum over right hands / (10 B), a per-sample mean, so data-
+    parallel ranks on equal slices average to the global batch's value however the right
+    hands fall."""
     right = is_right.to(pd_shape.dtype)[:, None]
     n_right = torch.clamp_min(right.sum(), 1.0)
     shape_mse = (((pd_shape - gt_shape) ** 2) * right).sum() / (n_right * pd_shape.shape[-1])
@@ -192,4 +195,33 @@ def physics_losses(gt_force_point, pd_force_global, gt_com, pd_com, gt_force_loc
         "torque_loss": torque_loss,
         "supervised_loss": torch.mean((pd_force_local - gt_force_local) ** 2),
         "CoM_loss": torch.mean((pd_com - gt_com.expand(pd_com.shape)) ** 2),
+    }
+
+
+class HeadObjectRegress(nn.Module):
+    """Direct object 9-d pose regression: 1024 -> 1024 -> 512 (LeakyReLU 0.01) -> rot6d (6) and
+    translation (3), concatenated.  The reference defines it and its model never instantiates
+    it; no path of the port calls it either (``utils/weights.py::object_regress_state_dict``
+    carries its Flax weights)."""
+
+    def __init__(self, in_dim: int = 1024):
+        super().__init__()
+        self.base_layer = nn.Sequential(nn.Linear(in_dim, 1024), nn.LeakyReLU(0.01),
+                                        nn.Linear(1024, 512), nn.LeakyReLU(0.01))
+        self.fc_rot6d = nn.Linear(512, 6)
+        self.fc_trans = nn.Linear(512, 3)
+
+    def forward(self, x):
+        h = self.base_layer(x)
+        return torch.cat([self.fc_rot6d(h), self.fc_trans(h)], dim=-1)
+
+
+def object_regress_losses(pd_pose, pd_vert, pd_kpt, gt_pose, gt_vert, gt_kpt
+                          ) -> Dict[str, torch.Tensor]:
+    """``HeadObjectRegress``'s losses: vertex, keypoint, rot6d and translation MSE."""
+    return {
+        "obj_reg_vert_loss": torch.mean((pd_vert - gt_vert) ** 2),
+        "obj_reg_kpt_loss": torch.mean((pd_kpt - gt_kpt) ** 2),
+        "obj_reg_rot6d_loss": torch.mean((pd_pose[:, :6] - gt_pose[:, :6]) ** 2),
+        "obj_reg_trans_loss": torch.mean((pd_pose[:, 6:] - gt_pose[:, 6:]) ** 2),
     }

@@ -12,11 +12,14 @@ keep masks from a ``DropoutMasks`` source, so that they are an input like every 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed.nn.functional as dist_nn
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel import mesh as _mesh
 
 
 def lrelu(x: torch.Tensor) -> torch.Tensor:
@@ -62,7 +65,17 @@ class BatchNorm2d(nn.BatchNorm2d):
     In train mode it follows Flax's ``nn.BatchNorm(momentum=0.9)``, not torch's: it normalizes
     with the biased batch variance and moves the running statistics to
     ``0.9 * old + 0.1 * batch`` with that same biased variance (torch would store the unbiased
-    one).  ``num_batches_tracked`` stays untouched, as Flax keeps no such counter."""
+    one).  ``num_batches_tracked`` stays untouched, as Flax keeps no such counter.
+
+    While a process group is up (``parallel/mesh.py``) the train-mode statistics are those of
+    the global batch, as under the JAX package's sharded jit: the per-channel sum and count are
+    all-reduced in float32 (with autograd), then the sum of squared deviations from that mean,
+    and every rank moves its running statistics by the same numbers.  The variance takes the
+    two passes of the single-process path (cuDNN's), not Flax's E[x^2] - E[x]^2, which
+    cancels where a channel's mean is large against its spread: at full width that form moved
+    the physics head's gradients past ``chip_smoke.py``'s bar from the single-process step,
+    where two passes stay at the rounding noise of a 1-ulp change of the input
+    (``bench_torch_bn_variance.py``)."""
 
     def forward(self, x):
         x32 = x.float()
@@ -70,13 +83,27 @@ class BatchNorm2d(nn.BatchNorm2d):
             y = F.batch_norm(x32, self.running_mean, self.running_var, self.weight, self.bias,
                              False, 0.0, self.eps)
             return y.to(x.dtype)
-        y = F.batch_norm(x32, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if _mesh.is_distributed():
+            y, mean, var = self._cross_rank(x32)
+        else:
+            y = F.batch_norm(x32, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            with torch.no_grad():
+                var, mean = torch.var_mean(x32, dim=(0, 2, 3), correction=0)
         with torch.no_grad():
-            var, mean = torch.var_mean(x32, dim=(0, 2, 3), correction=0)
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
         return y.to(x.dtype)
+
+    def _cross_rank(self, x32: torch.Tensor):
+        C = x32.shape[1]
+        count = x32.new_full((1,), x32.numel() // C)
+        sums = dist_nn.all_reduce(torch.cat([x32.sum((0, 2, 3)), count]))
+        mean = sums[:C] / sums[-1]
+        d = x32 - mean[:, None, None]
+        var = dist_nn.all_reduce((d * d).sum((0, 2, 3))) / sums[-1]
+        y = d * (torch.rsqrt(var + self.eps) * self.weight)[:, None, None] + self.bias[:, None, None]
+        return y, mean.detach(), var.detach()
 
 
 def joints_mse_loss(pd_hm: torch.Tensor, gt_hm: torch.Tensor) -> torch.Tensor:
@@ -93,17 +120,31 @@ class DropoutMasks:
     ``drawn``, so a run can be replayed elsewhere.  The two forms are Flax's: ``__call__`` is
     ``nn.Dropout`` (kept values divided by the keep rate, the rest exactly 0) and
     ``attention`` the attention-weight dropout of ``MultiHeadDotProductAttention`` (one
-    (q, k) mask shared by the batch and the heads, applied as a multiplier)."""
+    (q, k) mask shared by the batch and the heads, applied as a multiplier).
+
+    With ``rows`` = ``(lo, hi, global_batch)`` (a data-parallel rank's slice) every mask of a
+    batched site is drawn, or given, at the global batch and rows ``lo:hi`` are handed out;
+    ``drawn`` keeps the global masks.  The attention mask is the whole batch's on every rank."""
 
     def __init__(self, rate: float = 0.1, masks: Optional[Sequence[torch.Tensor]] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 rows: Optional[Tuple[int, int, int]] = None):
         self.keep = 1.0 - rate
         self.given = None if masks is None else list(masks)
         self.generator = generator
+        self.rows = rows
         self.drawn: List[torch.Tensor] = []
 
-    def mask(self, shape, device) -> torch.Tensor:
+    def mask(self, shape, device, batched: bool = True) -> torch.Tensor:
         shape = tuple(shape)
+        if batched and self.rows is not None:
+            lo, hi, total = self.rows
+            if shape[0] != hi - lo:
+                raise ValueError(f"dropout: a site of batch {shape[0]} on rows {lo}:{hi}")
+            return self._mask((total,) + shape[1:], device)[lo:hi]
+        return self._mask(shape, device)
+
+    def _mask(self, shape, device) -> torch.Tensor:
         if self.given is not None:
             if len(self.drawn) >= len(self.given):
                 raise ValueError(f"dropout: {len(self.given)} masks given, site "
@@ -125,7 +166,7 @@ class DropoutMasks:
 
     def attention(self, w: torch.Tensor) -> torch.Tensor:
         """w (B, heads, q, k) softmax weights."""
-        m = self.mask((1, 1) + tuple(w.shape[-2:]), w.device)
+        m = self.mask((1, 1) + tuple(w.shape[-2:]), w.device, batched=False)
         return w * (m.to(w.dtype) / self.keep)
 
 

@@ -231,7 +231,8 @@ Draws = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
 def forward_train(model: VPHONet, ctx: VPHOContext, batch: Dict[str, torch.Tensor],
                   draws: Optional[Draws] = None, dropout: Optional[DropoutMasks] = None,
-                  generator: Optional[torch.Generator] = None
+                  generator: Optional[torch.Generator] = None,
+                  rows: Optional[Tuple[int, int, int]] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One training forward: ``(total_loss, weighted loss dict)``, the dict also holding
     ``total_loss``.  The trunk runs in train mode (batch statistics; the running statistics
@@ -240,14 +241,21 @@ def forward_train(model: VPHONet, ctx: VPHOContext, batch: Dict[str, torch.Tenso
     Randomness is an input: ``draws`` maps "hand" and "obj" to the score loss's
     ``(random_t, z)``, and ``dropout`` hands out the 10 dropout keep masks in call order
     (``DropoutMasks(masks=...)`` replays given ones); whatever is not given is drawn from
-    ``generator`` (torch's default when None)."""
+    ``generator`` (torch's default when None).
+
+    On a data-parallel rank, ``rows`` = ``(lo, hi, global_batch)`` is its slice of the global
+    batch (``parallel/mesh.py::batch_rows``): the draws are made, or given, at the global batch
+    and the rank takes its samples, so N ranks draw what one rank draws (a given ``dropout``
+    carries its own ``rows``).  Every loss term is a mean over equal-size slices, so the mean
+    of the ranks' losses (and gradients) is the global batch's; the right-hand shape term
+    too, since its count cancels (``heads.mano_losses``)."""
     cfg = ctx.cfg
     draws = draws or {}
     was_training = model.training
     model.train()
     try:
         out = model.trunk(batch, dropout if dropout is not None else
-                          DropoutMasks(generator=generator))
+                          DropoutMasks(generator=generator, rows=rows))
     finally:
         model.train(was_training)
 
@@ -264,7 +272,7 @@ def forward_train(model: VPHONet, ctx: VPHOContext, batch: Dict[str, torch.Tenso
         random_t, z = draws.get(name, (None, None))
         loss[f"diff_{name}_loss"] = score_matching_loss(
             scorer(den), feat, gt, ctx.sde, cfg.repeat_num, random_t=random_t, z=z,
-            generator=generator)
+            generator=generator, rows=rows)
     loss["hm_hand_loss"] = joints_mse_loss(out["pd_hm_hand"], batch["hm_hand"])
     loss["hm_obj_loss"] = joints_mse_loss(out["pd_hm_obj"], batch["hm_obj"])
 

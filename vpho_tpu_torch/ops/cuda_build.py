@@ -4,13 +4,17 @@ Each ``csrc/<name>.cu`` exposes a plain C function and is compiled by ``nvcc`` i
 ``build/vpho_tpu_torch/lib<name>_<hash>.so`` at the checkout's root, then loaded with
 ``ctypes``.  The hash covers the source and the flags, so an edited source rebuilds on its next
 use.  Nothing is built when the module is imported: the first kernel launch builds what it
-needs, and :func:`build_all` builds every source at once, one ``nvcc`` process each.  ptxas's
+needs, and :func:`build_all` builds every source at once, one ``nvcc`` process each.  A build
+holds a file lock on the build directory, so data-parallel ranks build each library once and
+the others wait for it.  ptxas's
 report of each kernel's registers, shared memory and spills is kept beside the library
 (``.log``) and read back by :func:`ptxas_report`.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -40,6 +44,18 @@ def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+
+
+@contextlib.contextmanager
+def build_lock(build_dir: Path = BUILD_DIR):
+    """An exclusive lock on ``build_dir`` across processes, for as long as the block runs."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(build_dir / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def _start(name: str):
@@ -78,15 +94,16 @@ def ptxas_report(name: str) -> Dict[str, int]:
 def build_all() -> float:
     """Compile every missing kernel library in parallel; returns the wall seconds."""
     t0 = time.perf_counter()
-    jobs = {name: _start(name) for name in SOURCES}
     errors = []
-    for name, job in jobs.items():
-        if job is None:
-            continue
-        try:
-            _finish(name, job)
-        except RuntimeError as exc:
-            errors.append(str(exc))
+    with build_lock():
+        jobs = {name: _start(name) for name in SOURCES}
+        for name, job in jobs.items():
+            if job is None:
+                continue
+            try:
+                _finish(name, job)
+            except RuntimeError as exc:
+                errors.append(str(exc))
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0
@@ -96,9 +113,10 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        job = _start(name)
-        if job is not None:
-            _finish(name, job)
+        with build_lock():
+            job = _start(name)
+            if job is not None:
+                _finish(name, job)
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib

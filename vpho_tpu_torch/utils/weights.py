@@ -14,6 +14,9 @@ is this module's own copy of the JAX package's ``_walk_vpho``; the layout conver
     ``num_batches_tracked``
 MANO, YCB and anchor tables are constants outside the ``state_dict``.
 
+``object_regress_state_dict(params)`` does the same for a Flax ``HeadObjectRegress``, which the
+model does not hold.
+
 ``jax_variables_from_state_dict(sd)`` is the inverse, from the same ``_walk`` table: the Flax
 trees as nested dicts of numpy arrays (``num_batches_tracked``, which Flax has no slot for, is
 dropped).  ``save_final_model`` pickles them as the JAX package's ``final_model.pkl``.
@@ -181,6 +184,15 @@ def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
     """Flax ``{"params", "batch_stats", "buffers"}`` numpy trees -> torch ``state_dict``."""
     conv = _Converter(variables)
     _walk(lambda kind, tkey, *fpath: getattr(conv, kind)(tkey, *fpath))
+    return {k: torch.from_numpy(np.array(v)) for k, v in conv.sd.items()}
+
+
+def object_regress_state_dict(params) -> Dict[str, torch.Tensor]:
+    """A Flax ``HeadObjectRegress``'s ``params`` tree -> the port head's ``state_dict``."""
+    conv = _Converter({"params": params, "batch_stats": {}, "buffers": {}})
+    for tkey, fname in (("base_layer.0", "Dense_0"), ("base_layer.2", "Dense_1"),
+                        ("fc_rot6d", "Dense_2"), ("fc_trans", "Dense_3")):
+        conv.linear(tkey, fname)
     return {k: torch.from_numpy(np.array(v)) for k, v in conv.sd.items()}
 
 
