@@ -11,12 +11,19 @@ Phases, one output line each:
   3. f32      the predict slice at test size on the card (TF32 off) against the same port on
               the CPU: same weights, same ODE start state
   4. predict  the blessed eval config (patch 256, bs 64, S 100, 50 dpm3m steps, topk 30/10,
-              bf16 policy) through ``forward_predict``: 1 warm-up and 2 timed batches, kernel
-              launch counts, frames/s, peak memory and a per-stage time split
+              bf16 policy) through ``make_predict_step``: the capture (with its eager warm-up),
+              then 3 timed replays, kernel launch counts, frames/s, peak memory, and an eager
+              per-stage time split
   4b. ode     the blessed 50-step ODE (``forward_candidates``) once more with K1's plain version
               bound into the denoiser, held against the kernel run
-  5. profile  one more batch under torch.profiler: device busy time, idle share, top kernels,
-              and the count and time of copy / cast kernels
+  5. profile  one more eager batch under torch.profiler: device busy time, idle share, top
+              kernels, and the count and time of copy / cast kernels
+  5b. graphs  (predict) the captured steps against the eager path: the f32 slice at test size
+              (TF32 off) and the blessed bf16 batch replayed bit for bit equal to an eager run;
+              K1 = 50 and K2 = 2 in a replayed batch by the tallies and by the profiler's
+              kernel names; host launches, device busy ms and idle share of a replayed and an
+              eager batch; frames/s over 5 eager and 5 replayed batches in turns; the capture's
+              seconds and pool
   6. eval     the eval entry point, ``engine.runner.run`` in-process, at the blessed config
               (bf16, 4 batches of 64, the viz dumps of batch 0): frames/s over the batches after
               the first, the predict / metrics / host split, peak memory, K1 = 50 and K2 = 2
@@ -25,7 +32,8 @@ Phases, one output line each:
   7. eval_f32 the metrics and testers on the card against the CPU for the same predictions,
               TF32 left on, within 1e-5 m
   8. modes    at full width: one batch of candidates per integrator (euler, heun, rk4, dpm2m at
-              10 steps; dpm3m on the karras grid), K1's launches equal to its score evaluations;
+              10 steps; dpm3m on the karras grid) replayed through ``make_candidate_step``, K1's
+              launches equal to its score evaluations;
               every aggregation choice on one candidate set, K2 held against its plain version
               at the force-selection shape (N = topk_obj^2); the default aggregation timed under
               the eigh and the power quaternion mean
@@ -65,11 +73,14 @@ Phases, one output line each:
               ``evaluation.txt`` order (each zip row is its frame's prediction in the OpenGL
               frame); ``--mode train --max_epochs 1 --full_evaluation_freq 1
               --device_preprocess`` runs ``infer_ho3d`` after its epoch
-  17. force   offline force labels: a bs-64 fixture batch (every third hand left, every fifth
-              sample ungrasped) through ``ForceOptimizer.run_batch`` at the full 3000 iterations:
-              s per batch, iterations/s, peak memory; launches, device ms and busy share per
-              iteration of each phase from a profiled 20-iteration window; the final force loss
-              below the initial one, ungrasped rows 0.  Then bs 8 at 10 + 40 iterations on the
+  17. force   offline force labels: first (the ``graphs`` line, part force) a bs-64 fixture
+              batch (every third hand left, every fifth sample ungrasped) at the full 3000
+              iterations eagerly and on graphs, the forces equal bit for bit, s a batch both
+              ways, host launches, device launches, device ms and busy share per iteration of
+              each phase (profiled 20-iteration windows), DexYCB s0's hours both ways.  Then the
+              batch through ``ForceOptimizer.run_batch`` (graphs): s per batch, iterations/s,
+              peak memory; the final force loss below the initial one, ungrasped rows 0.  Then
+              bs 8 at 10 + 40 iterations on the
               card against the CPU (TF32 off), ``force_optim_main`` on a 128-frame mini tree
               named ``DexYCB`` (every label read back by ``get_force``; no kernel launched), and
               ``--imagenet_pretrain`` + ``--pretrain x.pth`` through the eval entry point
@@ -133,6 +144,36 @@ def spread_weights(model, gen):
         for head in (model.head_hm_hand, model.head_hm_obj):
             head.final_layer.bias.fill_(1.0)
     return model
+
+
+# the host's calls that put work on the device, as torch.profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def profiled(fn):
+    """``fn()`` under torch.profiler, ended by a synchronize: wall ms (host clock), device busy
+    ms (the device-side events' own time), kernel counts by name, and the host's launch calls
+    (``LAUNCH_CALLS``) by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    return dict(wall_ms=wall_ms, busy_ms=sum(e.self_device_time_total for e in device) / 1e3,
+                kernels={e.key: e.count for e in device},
+                host_launches={e.key: e.count for e in events if e.key in LAUNCH_CALLS})
+
+
+def count_named(counts, needle):
+    return sum(n for key, n in counts.items() if needle in key)
 
 
 def digest(tensors) -> str:
@@ -549,14 +590,22 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
 
-    # ---- 4. the blessed predict path, bf16 policy -----------------------------------------
-    K1.launches = K2.launches = 0
+    # ---- 4. the blessed predict path, bf16 policy, through the predict step ---------------
+    from vpho_tpu_torch.engine.trainer import make_candidate_step, make_predict_step
+
     torch.cuda.reset_peak_memory_stats()
+    predict_step = make_predict_step(model, ctx)
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    predict_step.capture(batch, x0)                 # the eager warm-up, then the capture
+    torch.cuda.synchronize()
+    capture_wall_s = time.perf_counter() - t_start
+    K1.launches = K2.launches = 0
     n_batches, times = 3, []
     for _ in range(n_batches):
         torch.cuda.synchronize()
         t_start = time.perf_counter()
-        pd = V.forward_predict(model, ctx, batch, x0=x0)
+        pd = predict_step(batch, x0)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t_start)
     launches = {"bank_mlp": K1.launches, "min_dist": K2.launches}
@@ -582,16 +631,16 @@ def main() -> int:
         torch.cuda.synchronize()
         return (time.perf_counter() - t_start) * 1e3
 
+    # (eager: the stages of one graph cannot be timed apart)
     with torch.inference_mode():
         trunk_ms = wall(lambda: model.trunk(batch))
     cand_ms = wall(lambda: V.forward_candidates(model, ctx, batch, x0=x0))
     total_ms = wall(lambda: V.forward_predict(model, ctx, batch, x0=x0))
-    timed = times[1:]
     say(phase="predict", batch=B, sample_num=S, steps=cfg.sampling_steps, dtype="bfloat16",
-        warmup_s=times[0], batch_s=timed, frames_per_s=B * len(timed) / sum(timed),
-        peak_mem_gb=peak_gb, launches=launches, split_ms=dict(
-            trunk=trunk_ms, ode_and_fk=cand_ms - trunk_ms, aggregation=total_ms - cand_ms,
-            total=total_ms))
+        path="make_predict_step, replayed", capture_wall_s=capture_wall_s, batch_s=times,
+        frames_per_s=B * len(times) / sum(times), peak_mem_gb=peak_gb, launches=launches,
+        eager_split_ms=dict(trunk=trunk_ms, ode_and_fk=cand_ms - trunk_ms,
+                            aggregation=total_ms - cand_ms, total=total_ms))
 
     # ---- 4b. the blessed ODE with K1's plain version bound into the denoiser ------------
     # Kernel and plain differ only where a hidden value rounds to the other bf16 neighbour;
@@ -628,6 +677,74 @@ def main() -> int:
         copy_cast=dict(launches=sum(e.count for e in copies),
                        ms=sum(e.self_device_time_total for e in copies) / 1e3),
         top=[[e.key[:70], round(e.self_device_time_total / 1e3, 3), e.count] for e in top])
+
+    # ---- 5b. graphs (predict): the captured steps against the eager path ------------------
+    # (a) the f32 slice at test size, TF32 off: a replay equal to the eager run bit for bit.
+    # cuDNN's deterministic algorithms: in float32 its transposed convolution (the heatmap
+    # heads' deconvolutions) may sum with atomics, and two eager runs then differ as well
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b_gpu, x0_gpu = {k: v.to(dev) for k, v in b_cpu.items()}, x0_small.to(dev)
+    twice = [V.forward_predict(m_gpu, ctx_gpu, b_gpu, x0=x0_gpu) for _ in range(2)]
+    f32_eager_vs_eager = {k: (twice[0][k] - v).abs().max().item() for k, v in twice[1].items()
+                          if not torch.equal(twice[0][k], v)}       # the default algorithms
+    del twice
+    torch.backends.cudnn.deterministic = True
+    f32_eager = V.forward_predict(m_gpu, ctx_gpu, b_gpu, x0=x0_gpu)
+    f32_step = make_predict_step(m_gpu, ctx_gpu)
+    f32_replay = f32_step(b_gpu, x0_gpu)
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    f32_differ = sorted(k for k, v in f32_eager.items() if not torch.equal(f32_replay[k], v))
+    check(not f32_differ, f"graphs f32: replay differs from the eager run in {f32_differ}")
+    del f32_step, f32_eager, f32_replay
+    # (b) the blessed bf16 batch, cuDNN deterministic, its own capture: replay against eager;
+    # then phase 4's step (cuDNN's default algorithms) against an eager run, recorded only
+    torch.backends.cudnn.deterministic = True
+    det_step = make_predict_step(model, ctx)
+    bf16_eager = V.forward_predict(model, ctx, batch, x0=x0)
+    bf16_replay = det_step(batch, x0)
+    torch.backends.cudnn.deterministic = False
+    bf16_differ = sorted(k for k, v in bf16_eager.items() if not torch.equal(bf16_replay[k], v))
+    check(not bf16_differ, f"graphs bf16: replay differs from the eager run in {bf16_differ}")
+    del det_step, bf16_eager, bf16_replay
+    bf16_eager, bf16_replay = V.forward_predict(model, ctx, batch, x0=x0), predict_step(batch, x0)
+    default_differ = sorted(k for k, v in bf16_eager.items() if not torch.equal(bf16_replay[k], v))
+    del bf16_eager, bf16_replay
+    # (c) one replayed batch and one eager batch under the profiler; the tallies of the replay
+    K1.launches = K2.launches = 0
+    rep = profiled(lambda: predict_step(batch, x0))
+    rep_tallies = {"bank_mlp": K1.launches, "min_dist": K2.launches}
+    rep_profiler = {"bank_mlp": count_named(rep["kernels"], "bank_mlp_kernel"),
+                    "min_dist": count_named(rep["kernels"], "min_dist_kernel")}
+    eag = profiled(lambda: V.forward_predict(model, ctx, batch, x0=x0))
+    check(rep_tallies == rep_profiler == {"bank_mlp": 50, "min_dist": 2},
+          f"graphs: a replayed batch's launches, tallies {rep_tallies}, profiler {rep_profiler}")
+    # (d) frames/s, eager and replayed in turns
+    eager_ms, replay_ms = [], []
+    for _ in range(6):
+        eager_ms.append(wall(lambda: V.forward_predict(model, ctx, batch, x0=x0)))
+        replay_ms.append(wall(lambda: predict_step(batch, x0)))
+    graph = next(iter(predict_step.graphs.values()))[1]
+    window = lambda p: dict(wall_ms=p["wall_ms"], device_busy_ms=p["busy_ms"],
+                            device_idle_share=1.0 - p["busy_ms"] / p["wall_ms"],
+                            kernels=sum(p["kernels"].values()),
+                            host_launches=sum(p["host_launches"].values()),
+                            host_launch_calls=p["host_launches"])
+    say(phase="graphs", part="predict", card=card, batch=B, sample_num=S,
+        steps=cfg.sampling_steps, f32_test_size_bit_identical=True, bf16_bit_identical=True, cudnn_deterministic=True,
+        default_algorithms_replay_vs_eager_differ=default_differ,
+        f32_default_algorithms_eager_vs_eager_max_abs_diff=f32_eager_vs_eager,
+        replayed_launches=dict(tallies=rep_tallies, profiler=rep_profiler),
+        replayed=window(rep), eager=window(eag),
+        frames_per_s=dict(eager=B * 5 / sum(eager_ms[1:]) * 1e3,
+                          replayed=B * 5 / sum(replay_ms[1:]) * 1e3),
+        batch_ms=dict(eager=eager_ms[1:], replayed=replay_ms[1:]),
+        capture_s=graph.seconds, capture_and_warmup_wall_s=capture_wall_s,
+        pool_gb=graph.pool_bytes / 1e9)
+    for name in kernels:
+        kernels[name]["launches_by_path_replayed_batch"] = rep_tallies[name]
 
     # ---- 6. eval: the eval entry point in-process at the blessed config, bf16 ------------
     import dataclasses
@@ -747,24 +864,26 @@ def main() -> int:
         max_abs_err_m=f32_metric_err, tester_max_abs_err=tester_err)
 
     # ---- 8. modes: every integrator and aggregation choice at full width, bf16 -------------
+    # (the candidate batches through make_candidate_step: captured, then one replay timed)
     modes, steps, held = {}, 10, {}
-
-    def candidates(mctx):
-        held["cand"] = V.forward_candidates(model, mctx, batch, x0=x0)
-
     for method, schedule in (("euler", "uniform"), ("heun", "uniform"), ("rk4", "uniform"),
                              ("dpm2m", "uniform"), ("dpm3m", "karras")):
         mctx = ctx._replace(cfg=dataclasses.replace(cfg, ode_method=method, ode_schedule=schedule,
                                                     sampling_steps=steps))
+        cand_step = make_candidate_step(model, mctx)
+        cand_step.capture(batch, x0)
         K1.launches = 0
-        cand_ms = wall(lambda: candidates(mctx))
+        cand_ms = wall(lambda: held.update(cand=cand_step(batch, x0)))
         evals = SAMP.score_evals(method, steps)
         check(K1.launches == evals, f"{method}: K1 launched {K1.launches}, score evaluations {evals}")
-        cand, trunk_out = held["cand"]
+        cand = held["cand"]
         check(all(bool(torch.isfinite(cand[k]).all()) for k in ("diff_final_hand_mano",
                                                                    "diff_final_obj_6d")),
               f"{method}: non-finite candidates")
         modes[f"{method}_{schedule}"] = dict(k1_launches=K1.launches, score_evals=evals, ms=cand_ms)
+        del cand_step
+    with torch.inference_mode():
+        trunk_out = model.trunk(batch)
 
     # every aggregation choice on the last candidate set (dpm3m on the karras grid); the
     # inputs of K2's force-selection launch are kept to hold the kernel against its plain form
@@ -835,7 +954,7 @@ def main() -> int:
     tcfg = get_config(train_argv)
     check((tcfg.compute_dtype, tcfg.optimizer, tcfg.scheduler, tcfg.base_learning_rate,
            tcfg.gamma) == ("float32", "adamw", "exp", 2e-4, 0.96), "training defaults changed")
-    del model, ctx, cand, trunk_out, held, recorded, pd, pd_a, agg_out
+    del model, ctx, cand, trunk_out, held, recorded, pd, pd_a, agg_out, predict_step, trainer
     torch.cuda.empty_cache()
     trainer_t = Trainer(tcfg, dev)
     trainer_t.init_state(8)
@@ -1255,7 +1374,40 @@ def main() -> int:
              TT.flip_point3d(fin["gravity"], left), TT.flip_point3d(fin["obj_CoM"], left))
     f0 = FO._losses(torch.full((bs, 32), 0.05, device=dev), torch.zeros((bs, 32, 8), device=dev),
                     (fargs[0] > 0.1).float(), *fargs, tables)[0].item()
-    # (a) one bs-64 batch at the full iteration counts through ForceOptimizer.run_batch
+    # graphs (force): one bs-64 batch eagerly (the same iteration functions, no graph) and on
+    # graphs, the forces equal bit for bit; the first graph run captures the two iterations
+    fwall = {}
+
+    def timed(name, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = FO.optimize_forces(*fargs, tables, **kw)
+        torch.cuda.synchronize()
+        fwall[name] = time.perf_counter() - t0
+        return out
+
+    f_eager = timed("eager", graphs=False)
+    f_first = timed("graphs_first_with_capture")
+    f_graph = timed("graphs")
+    f_differ = sorted(k for k in ("force_local", "force_point", "force_global")
+                      if not (torch.equal(f_graph[k], f_eager[k])
+                              and torch.equal(f_first[k], f_eager[k])))
+    check(not f_differ, f"graphs force: the graph run differs from the eager run in {f_differ}")
+    # per iteration of each phase: n_win eager iterations and n_win replays, profiled
+    loop = FO._LOOPS[(bs, fargs[0].device, FO.TOTAL_ITERS)]
+    n_win, per_iter = 20, {}
+    for phase, gi, step_fn in (("gravity", 0, loop.gravity_step), ("balance", 1, loop.balance_step)):
+        for how in ("eager", "graphs"):
+            loop.opt.reset()                         # the window stays inside the step table
+            run = (lambda: [step_fn() for _ in range(n_win)]) if how == "eager" else \
+                (lambda: [loop.graphs[gi].replay() for _ in range(n_win)])
+            w = profiled(run)
+            per_iter[f"{phase}_{how}"] = dict(
+                host_launches=sum(w["host_launches"].values()) / n_win,
+                device_launches=sum(w["kernels"].values()) / n_win,
+                device_ms=w["busy_ms"] / n_win, wall_ms=w["wall_ms"] / n_win,
+                busy_share=w["busy_ms"] / w["wall_ms"])
+    # (a) one bs-64 batch at the full iteration counts through ForceOptimizer.run_batch (graphs)
     K1.launches = K2.launches = 0
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -1269,29 +1421,17 @@ def main() -> int:
     ungrasped = fb["is_grasped"] == 0
     check(not fres["force_local"][ungrasped].any() and not fres["force_global"][ungrasped].any()
           and np.abs(fres["force_local"][~ungrasped]).max() > 0, "force: ungrasped rows")
-
-    def force_window(p1, total):
-        """(device launches, device busy ms, wall ms) of one optimize_forces call, profiled."""
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            FO.optimize_forces(*fargs, tables, p1, total)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        return (sum(e.count for e in ev), sum(e.self_device_time_total for e in ev) / 1e3,
-                wall_ms)
-
-    n_win = 20
-    w0 = force_window(0, 0)                   # set-up and the final losses only
-    per_iter = {}
-    for phase, (p1, total) in (("gravity", (n_win, n_win)), ("balance", (0, n_win))):
-        w = force_window(p1, total)
-        per_iter[phase] = dict(launches=(w[0] - w0[0]) / n_win, device_ms=(w[1] - w0[1]) / n_win,
-                               wall_ms=(w[2] - w0[2]) / n_win,
-                               busy_share=(w[1] - w0[1]) / (w[2] - w0[2]))
     n1, n2 = FO.PHASE1_ITERS, FO.TOTAL_ITERS - FO.PHASE1_ITERS
-    device_s = (n1 * per_iter["gravity"]["device_ms"] + n2 * per_iter["balance"]["device_ms"]) / 1e3
+    device_s = (n1 * per_iter["gravity_graphs"]["device_ms"]
+                + n2 * per_iter["balance_graphs"]["device_ms"]) / 1e3
+    s0_batches = 401507 // bs                    # DexYCB's s0 train split at bs 64
+    say(phase="graphs", part="force", card=card, batch=bs, iterations=FO.TOTAL_ITERS,
+        bit_identical=True, s_per_batch=dict(eager=fwall["eager"], graphs=fwall["graphs"],
+                                             graphs_first_with_capture=fwall["graphs_first_with_capture"]),
+        per_iteration=per_iter, capture_s=[g.seconds for g in loop.graphs],
+        pool_gb=sum(g.pool_bytes for g in loop.graphs) / 1e9,
+        dexycb_s0_hours=dict(eager=s0_batches * fwall["eager"] / 3600,
+                             graphs=s0_batches * fwall["graphs"] / 3600))
     # (b) the card against the port on the CPU, bs 8, 10 + 40 iterations, TF32 off
     cpu_tables = ForceAnchorTables(*[t.cpu() for t in tables])
     card8 = FO.optimize_forces(*[a[:8] for a in fargs], tables, 10, 50)
@@ -1344,8 +1484,9 @@ def main() -> int:
     check(not w_bad, f"pretrain weights differ: {w_bad[:5]}")
     check(tr_w.last_eval["timing"]["frames"] == [8, 8], "pretrained eval batches")
     say(phase="force", batch=bs, iterations=FO.TOTAL_ITERS, phase1_iterations=FO.PHASE1_ITERS,
-        s_per_batch=force_s, iterations_per_s=FO.TOTAL_ITERS / force_s,
-        ms_per_iteration=force_s * 1e3 / FO.TOTAL_ITERS, per_iteration=per_iter,
+        path="graphs", s_per_batch=force_s, iterations_per_s=FO.TOTAL_ITERS / force_s,
+        ms_per_iteration=force_s * 1e3 / FO.TOTAL_ITERS,
+        dexycb_s0_hours=s0_batches * force_s / 3600,
         busy_share_derived=device_s / force_s, peak_mem_gb=force_peak_gb,
         initial_force_loss=f0, losses=fres["losses"], card_vs_cpu=force_err,
         main_frames=2 * bs, main_s=main_s, labels_read_back=n_labels, launches=force_launches,

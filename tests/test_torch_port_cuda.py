@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels (K1 bank-MLP, K2 nearest-vertex search) against their plain
-PyTorch versions on the card, one training step on the card, and the device preprocess
-(``--device_preprocess``) on the card against itself on the CPU.
+PyTorch versions on the card, one training step on the card, the device preprocess
+(``--device_preprocess``) on the card against itself on the CPU, and the captured steps
+(``engine/graphs.py``): a replay equal to the eager run bit for bit, the kernels' tallies
+counting replayed launches, a capture that would wait on the device refused.
 
 There is no CPU mode for a CUDA kernel, so every test here needs an NVIDIA GPU and skips
 without one.  This file imports neither jax nor ``vpho_tpu``, so on a machine with a card and
@@ -251,3 +253,117 @@ def test_nccl_world_of_one_matches_the_undistributed_step(cuda_device, tmp_path)
         assert (g1[k] - g).norm().item() <= rtol * g.norm().item() + 1e-4 * scale[grp], k
     for k, v in s0.items():
         assert (s1[k] - v).abs().max().item() <= 1e-3 * v.abs().max().item(), k
+
+
+def _small_predict(device, dtype):
+    """A test-size model (patch 64, bs 2, S 4, 5 dpm3m steps, topk 3/2), a fixture batch and
+    an ODE start state, on ``device``."""
+    from vpho_tpu_torch.data import fixtures
+    from vpho_tpu_torch.models import vpho as V
+
+    cfg = V.ModelConfig(patch_size=64, sample_num=4, sampling_steps=5, topk_hand=3, topk_obj=2,
+                        compute_dtype=dtype)
+    ctx = V.make_context(cfg, device=device)
+    model = V.build_model(cfg, seed=0, device=device)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():                    # a non-zero score: the last bank layers drawn
+        for den in (model.denoiser_hand, model.denoiser_obj):
+            for t in (den.head.head[2].weight, den.head.head[2].bias):
+                t.copy_(torch.randn(t.shape, generator=gen) * 0.01)
+    batch = fixtures.make_batch(ctx, seed=2, batch_size=2, patch_size=64)
+    x0s = [V.draw_x0(ctx, 2, torch.Generator().manual_seed(s)) for s in (3, 4)]
+    return V, ctx, model, batch, x0s
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_predict_and_candidate_steps_replay_the_eager_run(cuda_device, dtype):
+    """TF32 off: a replay of ``make_predict_step`` and of ``make_candidate_step`` equals
+    ``forward_predict`` / ``forward_candidates`` run eagerly, bit for bit, for the x0 it was
+    captured with and for another one (the replay reads its static buffers); the capture (under
+    ``set_sync_debug_mode("error")``) raises nothing; one graph for the signature.  cuDNN's
+    deterministic algorithms: in float32 its transposed convolution (the heatmap heads'
+    deconvolutions) may sum with atomics, and then two eager runs differ too."""
+    from vpho_tpu_torch.engine.trainer import make_candidate_step, make_predict_step
+
+    V, ctx, model, batch, x0s = _small_predict(cuda_device, dtype)
+    predict, candidates = make_predict_step(model, ctx), make_candidate_step(model, ctx)
+    torch.backends.cudnn.deterministic = True
+    try:
+        _replay_the_eager_run(V, ctx, model, batch, x0s, predict, candidates)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert len(predict.graphs) == len(candidates.graphs) == 1
+
+
+def _replay_the_eager_run(V, ctx, model, batch, x0s, predict, candidates):
+    for x0 in x0s:
+        eager = V.forward_predict(model, ctx, batch, x0=x0)
+        got = predict(batch, x0)
+        assert set(got) == set(eager)
+        for k, v in eager.items():
+            assert torch.equal(got[k], v), k
+        eager_c = V.forward_candidates(model, ctx, batch, x0=x0)[0]
+        got_c = candidates(batch, x0)
+        for k, v in eager_c.items():
+            assert torch.equal(got_c[k], v), k
+
+
+def test_kernel_tallies_count_replayed_launches(cuda_device):
+    """bf16 (K1 is the bf16 hand head's fast path): after the capture, n replays move K1's
+    launches by n x the ODE's score evaluations and K2's by 2n (stages 4 and 5), and each
+    ``operations`` tally by n x a batch's."""
+    from vpho_tpu_torch.diffusion.sampler import score_evals
+    from vpho_tpu_torch.engine.trainer import make_predict_step
+
+    V, ctx, model, batch, x0s = _small_predict(cuda_device, "bfloat16")
+    step = make_predict_step(model, ctx)
+    k1_0, k2_0 = K1.operations, K2.operations
+    V.forward_predict(model, ctx, batch, x0=x0s[0])
+    per_batch = (K1.operations - k1_0, K2.operations - k2_0)
+    assert per_batch[0] > 0 and per_batch[1] > 0
+    step.capture(batch, x0s[0])                       # warm-up (counted) and capture (not)
+    K1.launches = K2.launches = K1.operations = K2.operations = 0
+    n = 3
+    for i in range(n):
+        step(batch, x0s[i % 2])
+    torch.cuda.synchronize()
+    assert K1.launches == n * score_evals("dpm3m", 5)
+    assert K2.launches == 2 * n
+    assert (K1.operations, K2.operations) == (n * per_batch[0], n * per_batch[1])
+
+
+def test_capture_refuses_a_host_wait(cuda_device):
+    """A step that reads a value back to the host cannot be captured: the capture raises
+    (``set_sync_debug_mode("error")``) and says so, and the tallies are left as they were."""
+    from vpho_tpu_torch.engine.graphs import CapturedStep
+
+    x = torch.arange(4.0, device=cuda_device)
+    before = (K1.launches, K2.launches)
+    step = CapturedStep(lambda t: t * float(t.sum()), "waits")
+    with pytest.raises(RuntimeError, match="waits: CUDA graph capture failed"):
+        step(x)
+    assert (K1.launches, K2.launches) == before and not step.graphs
+
+
+def test_force_graphs_replay_the_eager_loop(cuda_device):
+    """bs 8, 10 + 40 iterations, TF32 off: ``optimize_forces`` on graphs (one per phase,
+    replayed) equals the same iteration functions run eagerly on the card, bit for bit, twice
+    through the cached loop; no kernel launched."""
+    from vpho_tpu_torch.data import fixtures
+    from vpho_tpu_torch.engine import force_optim as FO
+    from vpho_tpu_torch.models import vpho as V
+
+    ctx = V.make_context(V.ModelConfig(), device=cuda_device)
+    arrays = fixtures.make_arrays(V.make_context(V.ModelConfig(), device="cpu"), seed=5,
+                                  batch_size=8, patch_size=64)
+    contact = (np.abs(np.random.RandomState(6).randn(8, 32)) * 0.5).astype(np.float32)
+    inputs = [torch.from_numpy(a).to(cuda_device) for a in
+              (contact, arrays["gt_hand_vert_flip"], arrays["gravity"], arrays["obj_CoM"])]
+    before = (K1.launches, K2.launches)
+    for _ in range(2):
+        eager = FO.optimize_forces(*inputs, ctx.anchor_tables, 10, 50, graphs=False)
+        graphs = FO.optimize_forces(*inputs, ctx.anchor_tables, 10, 50)
+        for k in ("force_local", "force_point", "force_global"):
+            assert torch.equal(graphs[k], eager[k]), k
+    assert FO._LOOPS[(8, inputs[0].device, 50)].graphs is not None
+    assert (K1.launches, K2.launches) == before

@@ -122,7 +122,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(name)\n"
         "assert {'vpho_tpu_torch.cli', 'vpho_tpu_torch.configs.config',\n"
         "        'vpho_tpu_torch.engine.trainer', 'vpho_tpu_torch.engine.runner',\n"
-        "        'vpho_tpu_torch.engine.force_optim', 'vpho_tpu_torch.parallel.mesh'} <= set(names)\n"
+        "        'vpho_tpu_torch.engine.force_optim', 'vpho_tpu_torch.parallel.mesh',\n"
+        "        'vpho_tpu_torch.engine.graphs'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'flax', 'optax', 'orbax', 'vpho_tpu'))\n"
         "assert not bad, bad\n"

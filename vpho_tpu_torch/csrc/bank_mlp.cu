@@ -440,6 +440,8 @@ bool make_map(CUtensorMap* map, const void* base, int rows, int box_rows) {
 
 }  // namespace
 
+constexpr int kMaxDevices = 64;
+
 // p (R, C) bf16; w1t (n, D, C) bf16 (W1 transposed to K-major); add (R/S, n, D) f32;
 // w2p (n, D/8, 8, 8) bf16 (W2 padded to 8 columns, 8x8 core matrices); b2 (n, O) f32;
 // out (R, n, O) f32.  Launches on ``stream``; returns a cudaError_t (0 on success).
@@ -454,14 +456,24 @@ extern "C" int vpho_bank_mlp(const void* p, const void* w1t, const void* add, co
   if (!make_map(&p_map, p, R, kTileRows) || !make_map(&w1_map, w1t, n_banks * kD, kD)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int device = 0, sms = 0;
+  // the SM count and the shared-memory opt-in once per device, not at every launch (a launch
+  // may be inside a CUDA graph capture)
+  static int sms_of[kMaxDevices] = {};
+  int device = 0;
   cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(bank_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
-  }
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (sms_of[device] == 0) {
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(bank_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kSmemBytes);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sms_of[device] = sms;
+  }
+  const int sms = sms_of[device];
   const int ranges = sms / n_banks > 1 ? sms / n_banks : 1;
   bank_mlp_kernel<<<n_banks * ranges, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       p_map, w1_map, static_cast<const float*>(add), static_cast<const __nv_bfloat16*>(w2p),

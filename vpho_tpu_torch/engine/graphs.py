@@ -1,0 +1,173 @@
+"""Captured steps: the counterpart of ``jax.jit``'s cache and dispatch, as CUDA graphs.
+
+The JAX package jits each hot path into one program that the host dispatches once
+(``vpho_tpu/engine/trainer.py::make_predict_step``, ``make_candidate_step``; the force loop's
+``fori_loop``).  Here the same work is captured once per input signature as a CUDA graph and
+replayed with one host launch:
+
+  * ``CapturedStep(fn, name)`` wraps ``fn(*args)``.  Its cache is keyed, like ``jax.jit``'s, by
+    the signature of the arguments: the pytree structure, each tensor leaf's shape, dtype and
+    device, and every other leaf's value (baked into the graph).  A new signature runs ``fn``
+    once eagerly on a side stream (the warm-up: kernels built and loaded, library handles and
+    plans made), then captures it into static input buffers; every call copies its tensors into
+    those buffers and replays.  The outputs are cloned after the replay, since the next replay
+    overwrites the graph's own: a caller may keep them.
+  * ``Graph(fn, device, name)`` is one capture of ``fn()`` over tensors that stay put (the
+    force loop's state), replayed by ``replay()``.
+  * On a CPU tensor a step calls ``fn`` directly: the CPU has no graphs, and the tests run the
+    same step functions eagerly.  On a CUDA tensor there is no eager fallback: a capture that
+    fails raises and names the line of the port where it failed.
+  * Warm-up and capture run under ``torch.cuda.set_sync_debug_mode("error")``, so an operation
+    that would wait for the device raises where it is called.
+  * The hand-written kernels' tallies (``ops/bank_mlp.py``, ``ops/min_dist.py``: ``launches``
+    and ``operations``) move only when their Python wrapper runs, which under a graph is at
+    capture.  A capture records how far it moved each one and puts them back; every replay
+    adds those moves again, so the tallies count the launches that ran.
+  * Every capture is logged once (``vpho_torch`` logger, the run's ``info.log``): the step's
+    name, the signature, its seconds and the memory its pool reserved.
+"""
+from __future__ import annotations
+
+import contextlib
+import logging
+import time
+import traceback
+from typing import Any, Callable, Dict, List, Tuple
+
+import torch
+from torch.utils import _pytree as pytree
+
+from ..ops import bank_mlp as K1
+from ..ops import min_dist as K2
+
+COUNTERS = ((K1, "launches"), (K1, "operations"), (K2, "launches"), (K2, "operations"))
+log = logging.getLogger("vpho_torch")
+
+
+def _tallies() -> List[float]:
+    return [getattr(mod, name) for mod, name in COUNTERS]
+
+
+def _set_tallies(values) -> None:
+    for (mod, name), v in zip(COUNTERS, values):
+        setattr(mod, name, v)
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """An operation that makes the host wait for the device raises inside the block."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def _where(exc: BaseException) -> str:
+    """The innermost line of the port in an exception's traceback."""
+    frames = [f for f in traceback.extract_tb(exc.__traceback__) if "vpho_tpu_torch" in f.filename
+              and not f.filename.endswith("graphs.py")]
+    if not frames:
+        return "outside the port"
+    f = frames[-1]
+    return f"{f.filename.split('vpho_tpu_torch/')[-1]}:{f.lineno} `{f.line}`"
+
+
+class Graph:
+    """One CUDA graph of ``fn()``: ``out`` holds its outputs, ``replay()`` runs it again.
+
+    ``fn`` takes no arguments and reads and writes tensors that stay where they are.  With
+    ``warm`` (the default) it runs once eagerly on a side stream before the capture."""
+
+    def __init__(self, fn: Callable[[], Any], device: torch.device, name: str,
+                 warm: bool = True, signature: str = ""):
+        self.name = name
+        try:
+            if warm:
+                side = torch.cuda.Stream(device)
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side), no_host_sync():
+                    fn()
+                torch.cuda.current_stream(device).wait_stream(side)
+            before = _tallies()
+            t0 = time.perf_counter()
+            self.graph = torch.cuda.CUDAGraph()
+            try:
+                # thread_local: the loader's staging thread may pin memory meanwhile
+                with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                    reserved = torch.cuda.memory_reserved(device)   # after the cache is emptied
+                    with no_host_sync():
+                        self.out = fn()
+                    self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+            finally:
+                after = _tallies()
+                _set_tallies(before)            # the capture launched nothing
+        except Exception as exc:
+            raise RuntimeError(f"{name}: CUDA graph capture failed at {_where(exc)}: "
+                               f"{type(exc).__name__}: {exc}") from exc
+        self.moves = [a - b for a, b in zip(after, before)]
+        self.seconds = time.perf_counter() - t0
+        log.info(f"captured {name} [{signature}] in {self.seconds:.2f} s, "
+                 f"pool {self.pool_bytes / 1e9:.3f} GB")
+
+    def replay(self) -> None:
+        self.graph.replay()
+        _set_tallies([v + d for v, d in zip(_tallies(), self.moves)])
+
+
+def _leaf_key(leaf):
+    if isinstance(leaf, torch.Tensor):
+        return ("tensor", tuple(leaf.shape), leaf.dtype, leaf.device)
+    return ("value", leaf)
+
+
+class CapturedStep:
+    """``fn(*args)`` captured once per argument signature and replayed (module docstring)."""
+
+    def __init__(self, fn: Callable, name: str):
+        self.fn, self.name = fn, name
+        self.graphs: Dict[Tuple, Tuple[List[Any], Graph]] = {}
+
+    @staticmethod
+    def _flatten(args) -> Tuple[List[Any], Any, Tuple]:
+        leaves, spec = pytree.tree_flatten(args)
+        return leaves, spec, (spec, tuple(_leaf_key(x) for x in leaves))
+
+    @staticmethod
+    def _device(leaves) -> torch.device:
+        devices = {x.device for x in leaves if isinstance(x, torch.Tensor)}
+        if len(devices) != 1:
+            raise ValueError(f"a captured step takes its tensors on one device, got {devices}")
+        return devices.pop()
+
+    def capture(self, *args, warm: bool = True) -> None:
+        """Capture the graph of ``args``' signature now (no replay); ``warm=False`` when the
+        caller has just run ``fn`` eagerly on arguments of this signature (its warm-up)."""
+        leaves, spec, key = self._flatten(args)
+        dev = self._device(leaves)
+        if dev.type != "cuda" or key in self.graphs:
+            return
+        with torch.inference_mode(False), torch.no_grad():
+            static = [x.detach().clone() if isinstance(x, torch.Tensor) else x for x in leaves]
+        replica = pytree.tree_unflatten(static, spec)
+        paths = pytree.tree_flatten_with_path(args)[0]
+        signature = ", ".join(f"{pytree.keystr(p)} {tuple(x.shape)} {str(x.dtype)[6:]}"
+                              for p, x in paths if isinstance(x, torch.Tensor))
+        graph = Graph(lambda: self.fn(*replica), dev, self.name, warm=warm, signature=signature)
+        self.graphs[key] = (static, graph)
+
+    def __call__(self, *args):
+        leaves, _, key = self._flatten(args)
+        if self._device(leaves).type != "cuda":
+            return self.fn(*args)
+        if key not in self.graphs:
+            self.capture(*args)
+        static, graph = self.graphs[key]
+        with torch.no_grad():
+            for s, x in zip(static, leaves):
+                if isinstance(x, torch.Tensor):
+                    s.copy_(x)
+        graph.replay()
+        return pytree.tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+                               graph.out)

@@ -21,7 +21,9 @@ the device while the current one runs.  Host keys: ``_valid`` masks padded tail 
 the metrics and the dump, ``_index`` (with ``path_of``) fills the dump's index and path
 columns.  The ODE start state of batch i is ``x0_for(i, batch_size)`` when given, else a draw
 from a ``torch.Generator`` seeded 128 + i on the device.  The metrics stay on the device until
-the report; each batch makes one host transfer, for the prediction dump.
+the report; each batch makes one host transfer, for the prediction dump.  The predict and
+candidate paths go through ``make_predict_step`` and ``make_candidate_step``: on the card each is
+a CUDA graph per batch signature, replayed with one launch (``engine/graphs.py``).
 
 With ``--device_preprocess`` the loaders ship decoded frames and the batch's pixel work
 (crop, colour augmentation, erasing, heatmaps) runs on the device when the batch is staged
@@ -65,6 +67,7 @@ from ..parallel import mesh
 from ..utils import transforms as T
 from ..utils.platform import resolve_device
 from . import viz
+from .graphs import CapturedStep
 from .profiling import flops_of, param_count, trace
 from .tester import TesterHand, TesterObject
 
@@ -156,9 +159,7 @@ class Optimizer:
         torch._foreach_mul_(self.nu, self.b2)
         torch._foreach_add_(self.nu, torch._foreach_mul(g, g), alpha=1.0 - self.b2)
         self.count += 1
-        # bias corrections in float32, as optax computes them
-        bc1 = float(_F32(1.0) - _F32(self.b1) ** _F32(self.count))
-        bc2 = float(_F32(1.0) - _F32(self.b2) ** _F32(self.count))
+        bc1, bc2, lr = self._corrections()
         denom = torch._foreach_div(self.nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
@@ -166,8 +167,15 @@ class Optimizer:
         torch._foreach_div_(u, denom)
         if self.kind == "adamw":
             torch._foreach_add_(u, self.params, alpha=1e-4)
-        torch._foreach_mul_(u, -self.schedule(self.count - 1))
+        torch._foreach_mul_(u, -lr)
         return u
+
+    def _corrections(self):
+        """The bias corrections and learning rate of the update being applied (``count``
+        already counts it): the corrections in float32, as optax computes them."""
+        bc1 = float(_F32(1.0) - _F32(self.b1) ** _F32(self.count))
+        bc2 = float(_F32(1.0) - _F32(self.b2) ** _F32(self.count))
+        return bc1, bc2, self.schedule(self.count - 1)
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> bool:
@@ -200,6 +208,23 @@ def make_optimizer(cfg: Config, params: Dict[str, torch.Tensor],
     ``--gradient_accumulation_steps``, on ``make_lr_schedule``'s schedule."""
     return Optimizer(params, cfg.optimizer, make_lr_schedule(cfg, steps_per_epoch),
                      clip=cfg.gradient_clip, every=max(cfg.gradient_accumulation_steps, 1))
+
+
+def make_predict_step(model: V.VPHONet, ctx: V.VPHOContext) -> CapturedStep:
+    """The predict step (the JAX trainer's ``make_predict_step``): ``step(batch, x0)`` is
+    ``forward_predict`` with the ODE start state as an input, captured as a CUDA graph once per
+    batch signature on the card and replayed (``engine/graphs.py``), called eagerly on the CPU.
+    Its outputs are the caller's: a later call does not overwrite them."""
+    return CapturedStep(lambda batch, x0: V.forward_predict(model, ctx, batch, x0=x0),
+                        "predict_step")
+
+
+def make_candidate_step(model: V.VPHONet, ctx: V.VPHOContext) -> CapturedStep:
+    """The candidate step (the JAX trainer's ``make_candidate_step``, ``--mode
+    infer_candidate``): ``step(batch, x0)`` is ``forward_candidates``' hypotheses without the
+    aggregation, captured and replayed as ``make_predict_step``."""
+    return CapturedStep(lambda batch, x0: V.forward_candidates(model, ctx, batch, x0=x0)[0],
+                        "candidate_step")
 
 
 def _split_state(model: torch.nn.Module) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -344,6 +369,7 @@ class Trainer:
             if m:
                 self.start_epoch = int(m.group(1))
         self.model: Optional[V.VPHONet] = None
+        self._steps: Dict[str, tuple] = {}              # kind -> (model, its captured step)
         self.optimizer: Optional[Optimizer] = None
         self.step = 0                                       # train_step calls so far
         self._clock = _BatchClock(self.device)
@@ -541,15 +567,28 @@ class Trainer:
     def _eval_path_of(self):
         return self.eval_dataset.get_path if self.eval_dataset is not None else None
 
+    def _step(self, kind: str) -> CapturedStep:
+        """The model's predict or candidate step, made at first use (and anew for a new
+        model object)."""
+        model, step = self._steps.get(kind, (None, None))
+        if model is not self.model:
+            make = make_predict_step if kind == "predict" else make_candidate_step
+            step = make(self.model, self.ctx)
+            self._steps[kind] = (self.model, step)
+        return step
+
     def _predict(self, i: int, batch, x0):
-        """forward_predict; batch 0 also counts the graph's operations, batch 1 is traced
-        when ``--trace_dir`` is set."""
-        run = lambda: V.forward_predict(self.model, self.ctx, batch, x0=x0)
+        """The predict step.  Batch 0 runs ``forward_predict`` eagerly to count the graph's
+        operations, which is also the capture's warm-up, then captures the step; batch 1 is
+        traced when ``--trace_dir`` is set (a replay, on the card)."""
+        step = self._step("predict")
+        run = lambda: step(batch, x0)
         if i == 0:
-            pd, cost = flops_of(run)
+            pd, cost = flops_of(lambda: V.forward_predict(self.model, self.ctx, batch, x0=x0))
             self.logger.info(f"predict graph: {cost['flops'] / 1e9:.2f} GFLOPs "
                              f"({cost['kernel_flops'] / 1e9:.2f} in the CUDA kernels), "
                              f"{param_count(self.model) / 1e6:.2f}M params")
+            step.capture(batch, x0, warm=False)
             return pd
         if i == 1 and self.cfg.trace_dir and not self._trace_done and mesh.is_main():
             try:
@@ -702,7 +741,7 @@ class Trainer:
             for i, st in enumerate(self._staged(batches)):
                 b, valid, index = st.batch, st.valid, st.index
                 x0 = self._x0(i, st, x0_for)
-                pd, _ = V.forward_candidates(self.model, self.ctx, b, x0=x0)
+                pd = self._step("candidate")(b, x0)
                 row = _host({"diff_hand_mano": pd["diff_final_hand_mano"],
                              "diff_obj_6d": pd["diff_final_obj_6d"],
                              "reg_hand_joint": pd["reg_hand_joint"],

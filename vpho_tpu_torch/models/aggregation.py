@@ -23,6 +23,7 @@ from ..ops.image import sample_points
 from ..ops.min_dist import min_dist_and_idx
 from ..utils import transforms as T
 from ..utils.hand import MANO_JOINT_LEVEL, MANO_PARAMS_LEVEL
+from ..utils.platform import device_index
 from . import anchor as anchor_lib
 from . import heads
 from .mano import MANOModel, hand_joints_meters, hand_verts_meters
@@ -48,7 +49,7 @@ def normalize_pt2d_to_bbox(pt2d: torch.Tensor, bbox: torch.Tensor) -> torch.Tens
 def heat_values(heatmap: torch.Tensor, pt2d_norm: torch.Tensor,
                 observe_index: Sequence[int]) -> torch.Tensor:
     """heatmap (B, J, H, W); pt2d_norm (B, N, J, 2) -> bicubic heat (B, N, m)."""
-    obs = list(observe_index)
+    obs = device_index(observe_index, heatmap.device)
     return sample_points(heatmap[:, obs], pt2d_norm[:, :, obs], mode="bicubic")
 
 
@@ -76,7 +77,7 @@ def select_topk_hand_level(mano: MANOModel, pose, shape, root_joint, cam_intrins
     joint = hand_joints_meters(mano, pose, shape) + root_joint[:, None, None]
     pt2d = normalize_pt2d_to_bbox(T.project_points_batched(joint, cam_intrinsic), bbox)
     hv = heat_values(heatmap, pt2d, observe_index)                   # (B, N, m)
-    fuse_idx = list(fuse_index)
+    fuse_idx = device_index(fuse_index, pose.device)
     if not is_independent:
         val, topk = top_k(hv.sum(-1), k)
         weight = (val + 1e-8) / (val.sum(1, keepdim=True) + 1e-8)
@@ -89,7 +90,7 @@ def select_topk_hand_level(mano: MANOModel, pose, shape, root_joint, cam_intrins
         val, topk = top_k(score.transpose(1, 2), k)                      # (B, n, K)
         val, topk = val.transpose(1, 2), topk.transpose(1, 2)            # (B, K, n)
         weight = ((val + 1e-8) / (val.sum(1, keepdim=True) + 1e-8)).permute(0, 2, 1)
-        joint_of_param = torch.tensor(fuse_idx, device=pose.device).reshape(-1, 3)[:, 0] // 3
+        joint_of_param = fuse_idx.reshape(-1, 3)[:, 0] // 3
         pose_j = pose.reshape(B, N, 16, 3)
         bi = torch.arange(B, device=pose.device)[:, None, None]
         topk_pose_aa = pose_j[bi, topk, joint_of_param[None, None, :]]  # (B, K, n, 3)
@@ -114,8 +115,9 @@ def hand_heatmap_cascade(mano: MANOModel, pose, pose_regression, shape, root_joi
         fuse_idx = MANO_PARAMS_LEVEL[level_i]
         observe_idx = [j for lv in range(level_i + 1, 5) for j in MANO_JOINT_LEVEL[lv]]
         if use_regression_as_candidate and level_i == 0:
+            wrist = device_index(fuse_idx, pose.device)
             pose = pose.clone()
-            pose[:, S:, fuse_idx] = pose[:, :S, fuse_idx]    # regression copies take the wrists
+            pose[:, S:, wrist] = pose[:, :S, wrist]          # regression copies take the wrists
         data = select_topk_hand_level(mano, pose, shape, root_joint, cam_intrinsic, heatmap,
                                       bbox, k, fuse_idx, observe_idx,
                                       is_independent=level_i != 0, is_weight=is_weight)
@@ -231,9 +233,9 @@ def hand_physics_rerank(mano: MANOModel, tables: anchor_lib.ForceAnchorTables, p
 
     fuse_pose = pose[:, 0].clone()
     for f, anchors in enumerate(FINGER_ANCHOR_LEVELS):
-        _, topk = top_k(score[:, :, anchors].sum(-1), k)
-        fuse_idx = (MANO_PARAMS_LEVEL[2][3 * f:3 * f + 3]
-                    + MANO_PARAMS_LEVEL[3][3 * f:3 * f + 3])
+        _, topk = top_k(score[:, :, device_index(anchors, pose.device)].sum(-1), k)
+        fuse_idx = device_index(MANO_PARAMS_LEVEL[2][3 * f:3 * f + 3]
+                                + MANO_PARAMS_LEVEL[3][3 * f:3 * f + 3], pose.device)
         sel = take_candidates(pose[..., :48], topk)[:, :, fuse_idx].reshape(B, k, 2, 3)
         quat = T.axis_angle_to_quaternion(sel).transpose(1, 2)           # (B, 2, K, 4)
         fuse_pose[:, fuse_idx] = T.quaternion_to_axis_angle(
@@ -362,7 +364,7 @@ def hoi_aggregate(mano: MANOModel, registry: YCBRegistry,
                 "hand_agg_joint": hand_sel["agg_joint"]}
 
     # 5. per-finger physics re-rank over distal/tip level candidates
-    lvl2, lvl3 = MANO_PARAMS_LEVEL[2], MANO_PARAMS_LEVEL[3]
+    lvl2, lvl3 = (device_index(MANO_PARAMS_LEVEL[i], root_joint.device) for i in (2, 3))
     level4 = hand_sel["middle_data"][3].topk_idx_pose_aa[:, :hand_topk]  # (B, K, 5, 3)
     agg_l3 = agg_hand_mano[:, lvl2].reshape(B, 1, 5, 3)
     agg_l4 = agg_hand_mano[:, lvl3].reshape(B, 1, 5, 3)

@@ -138,7 +138,8 @@ def friction_anchor_dirs(num_anchor: int = 8, friction_coeff: float = 0.8, devic
     """(8, 3) friction-cone anchor directions."""
     ang = torch.arange(num_anchor, dtype=torch.float32, device=device) * (2 * math.pi / num_anchor)
     anchor = torch.stack([torch.cos(ang), torch.sin(ang), torch.ones_like(ang)], dim=-1) / num_anchor
-    return anchor * torch.tensor([friction_coeff, friction_coeff, 1.0], device=device)
+    # the cone's x and y scaled by the friction coefficient (z by 1: unchanged)
+    return torch.cat([anchor[:, :2] * friction_coeff, anchor[:, 2:]], dim=-1)
 
 
 def local_force_from_scale_weight(scale: torch.Tensor, weight: torch.Tensor,

@@ -18,7 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils.platform import resolve_device
+from ..utils.platform import device_index, resolve_device
 
 TIP_IDS = (745, 317, 444, 556, 673)
 JOINT_REORDER = (0, 13, 14, 15, 16, 1, 2, 3, 17, 4, 5, 6, 18, 10, 11, 12, 19, 7, 8, 9, 20)
@@ -180,14 +180,15 @@ def mano_fk(model: MANOModel, pose: torch.Tensor, shape: torch.Tensor):
     T_rot = torch.einsum("vk,bkij->bvij", model.weights, A_rot)
     T_t = torch.einsum("vk,bki->bvi", model.weights, corr_t)
     verts = (T_rot * v_posed[..., None, :]).sum(-1) + T_t
-    jtr = torch.cat([A_t, verts[:, list(TIP_IDS)]], dim=1)[:, list(JOINT_REORDER)]
+    jtr = torch.cat([A_t, verts[:, device_index(TIP_IDS, verts.device)]],
+                    dim=1)[:, device_index(JOINT_REORDER, verts.device)]
     center = jtr[:, :1]
     return (verts - center) * 1000.0, (jtr - center) * 1000.0
 
 
 def mano_fk_joints(model: MANOModel, pose: torch.Tensor, shape: torch.Tensor) -> torch.Tensor:
     """Joints-only FK (LBS restricted to the 5 fingertip vertices): (B, 21, 3) mm."""
-    tips = list(TIP_IDS)
+    tips = device_index(TIP_IDS, pose.device)
     R = _rotations(pose)
     j_template = model.J_regressor @ model.v_template                       # (16, 3)
     jdirs = torch.einsum("jv,vds->jds", model.J_regressor, model.shapedirs)
@@ -201,7 +202,7 @@ def mano_fk_joints(model: MANOModel, pose: torch.Tensor, shape: torch.Tensor) ->
               + torch.einsum("vds,bs->bvd", model.shapedirs[tips], shape)
               + torch.einsum("vdp,bp->bvd", model.posedirs[tips], _pose_map(R)))
     tip_pos = (T_rot * v_tips[..., None, :]).sum(-1) + T_t
-    jtr = torch.cat([A_t, tip_pos], dim=1)[:, list(JOINT_REORDER)]
+    jtr = torch.cat([A_t, tip_pos], dim=1)[:, device_index(JOINT_REORDER, pose.device)]
     return (jtr - jtr[:, :1]) * 1000.0
 
 

@@ -8,6 +8,8 @@ Conventions match the JAX package:
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -109,10 +111,10 @@ def matrix_to_rotation_6d(m: torch.Tensor) -> torch.Tensor:
     return m[..., :2, :].reshape(m.shape[:-2] + (6,))
 
 
-# The dominant-eigenvector solve inside ``average_quaternion``: "eigh" (``torch.linalg.eigh``,
-# which checks its status on the host on CUDA) or "power" (repeated squaring: batched 4x4
-# matmuls and reductions only).  One choice per process, as in the JAX package
-# (``--quat_mean_impl``); set it with ``set_quat_mean_impl``.
+# The dominant-eigenvector solve inside ``average_quaternion``: "eigh" (the symmetric eigen-
+# decomposition, as ``jnp.linalg.eigh``, computed by ``dominant_eigvec_4x4_jacobi``) or "power"
+# (repeated squaring: batched 4x4 matmuls and reductions only).  One choice per process, as in
+# the JAX package (``--quat_mean_impl``); set it with ``set_quat_mean_impl``.
 QUAT_MEAN_IMPL = "eigh"
 
 
@@ -136,6 +138,60 @@ def dominant_eigvec_4x4_power(A: torch.Tensor, squarings: int = 5) -> torch.Tens
     return normalize(v)
 
 
+# cyclic Jacobi on 4x4: each round rotates two disjoint pairs (p1, q1), (p2, q2) at once
+_JACOBI_ROUNDS = ((0, 1, 2, 3), (0, 2, 1, 3), (0, 3, 1, 2))
+JACOBI_SWEEPS = 5
+
+
+@functools.lru_cache(maxsize=None)
+def _jacobi_tables(device: torch.device):
+    """Per round: the flat (4x4) positions of a_pp, a_qq, a_pq of both pairs, and the (4, 16)
+    map from (c1, c2, s1, s2) to the round's rotation J (J_pp = J_qq = c, J_pq = s,
+    J_qp = -s), in float64."""
+    tables = []
+    with torch.inference_mode(False):
+        for p1, q1, p2, q2 in _JACOBI_ROUNDS:
+            gather = torch.tensor([5 * p1, 5 * p2, 5 * q1, 5 * q2, 4 * p1 + q1, 4 * p2 + q2],
+                                  device=device)
+            basis = torch.zeros(4, 16, dtype=torch.float64)
+            for r, (p, q) in enumerate(((p1, q1), (p2, q2))):
+                basis[r, 5 * p] = basis[r, 5 * q] = 1.0
+                basis[2 + r, 4 * p + q], basis[2 + r, 4 * q + p] = 1.0, -1.0
+            tables.append((gather, basis.to(device)))
+    return tuple(tables)
+
+
+def dominant_eigvec_4x4_jacobi(A: torch.Tensor, sweeps: int = JACOBI_SWEEPS) -> torch.Tensor:
+    """Unit eigenvector of the largest eigenvalue of symmetric (..., 4, 4) matrices, in A's
+    dtype (its sign is arbitrary, as ``eigh``'s).
+
+    Cyclic Jacobi in float64: every sweep applies the three rounds of two disjoint rotations,
+    each zeroing its pairs' off-diagonal entries (a_pq -> 0 with tan = sign(d) 2 a_pq /
+    (|d| + hypot(d, 2 a_pq)), d = a_qq - a_pp, the smaller angle), and accumulates them into
+    V.  A fixed number of sweeps and batched torch ops only: it never waits on the device
+    (``torch.linalg.eigh`` checks its status on the host on CUDA), so a CUDA graph captures it,
+    and the CPU runs the same arithmetic.  Convergence is quadratic: after 5 sweeps the
+    off-diagonal part is ~1e-15 of the matrix's norm (random and near-degenerate PSD matrices,
+    ``tests/test_torch_port_graphs.py``), far below float32's rounding."""
+    lead = A.shape[:-2]
+    a = A.to(torch.float64).reshape(-1, 4, 4)
+    v = torch.eye(4, dtype=torch.float64, device=A.device).expand_as(a)
+    tables = _jacobi_tables(A.device)
+    for _ in range(sweeps):
+        for gather, basis in tables:
+            app, aqq, apq = a.reshape(-1, 16)[:, gather].split(2, dim=-1)
+            d, two_apq = aqq - app, 2.0 * apq
+            t = torch.where(d >= 0, two_apq, -two_apq) / (d.abs() + torch.hypot(d, two_apq))
+            t = torch.nan_to_num(t, nan=0.0)              # d = a_pq = 0: nothing to rotate
+            c = torch.rsqrt(1.0 + t * t)
+            j = (torch.cat([c, t * c], dim=-1) @ basis).reshape(-1, 4, 4)
+            a = j.transpose(-1, -2) @ a @ j
+            v = v @ j
+    best = torch.diagonal(a, dim1=-2, dim2=-1).argmax(-1)
+    vec = torch.gather(v, -1, best[:, None, None].expand(-1, 4, 1))[..., 0]
+    return vec.to(A.dtype).reshape(lead + (4,))
+
+
 def average_quaternion(Q: torch.Tensor, W: torch.Tensor | None = None,
                        impl: str | None = None) -> torch.Tensor:
     """Weighted quaternion mean over the -2 axis: the dominant eigenvector of the weighted
@@ -152,7 +208,7 @@ def average_quaternion(Q: torch.Tensor, W: torch.Tensor | None = None,
     if (impl or QUAT_MEAN_IMPL) == "power":
         q_avg = dominant_eigvec_4x4_power(A)
     else:
-        q_avg = torch.linalg.eigh(A)[1][..., -1]
+        q_avg = dominant_eigvec_4x4_jacobi(A)
     return torch.where(q_avg[..., :1] > 0, 1.0, -1.0) * q_avg
 
 
@@ -182,7 +238,8 @@ def project_pt3d_to_pt2d(pt3d: torch.Tensor, cam_intrinsic: torch.Tensor) -> tor
 def inverse_project_uvd_to_xyz(uvd: torch.Tensor, cam_intrinsic: torch.Tensor) -> torch.Tensor:
     """uvd (..., 3); cam_intrinsic (..., 3, 3) -> xyz (..., 3)."""
     homog = torch.cat([uvd[..., :-1], torch.ones_like(uvd[..., -1:])], dim=-1)
-    return matmul_f32(homog, torch.linalg.inv(cam_intrinsic).transpose(-1, -2)) * uvd[..., -1:]
+    inv = torch.linalg.inv_ex(cam_intrinsic).inverse        # no host check of the status
+    return matmul_f32(homog, inv.transpose(-1, -2)) * uvd[..., -1:]
 
 
 def rigid_align(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
