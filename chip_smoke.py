@@ -30,7 +30,10 @@ Phases, one output line each:
               launches a batch, the headline metrics, the files written, and ``--eval_path``
               re-scoring the dumped pkl to the object report the eval logged
   7. eval_f32 the metrics and testers on the card against the CPU for the same predictions,
-              TF32 left on, within 1e-5 m
+              TF32 left on, within 1e-5 m; then (the ``graphs`` line, part metrics) one blessed
+              eval batch's metrics (3 hand testers, 2 object testers, bs 64) eagerly under the
+              profiler (device busy, idle share, top kernels, copies) with the alignment and
+              the distance blocks timed apart, and replayed: the rows equal bit for bit
   8. modes    at full width: one batch of candidates per integrator (euler, heun, rk4, dpm2m at
               10 steps; dpm3m on the karras grid) replayed through ``make_candidate_step``, K1's
               launches equal to its score evaluations;
@@ -39,15 +42,24 @@ Phases, one output line each:
               the eigh and the power quaternion mean
   9. train    the JAX package's training defaults at full width (f32, bs 64, patch 256,
               repeat_num 20, adamw, exp schedule, lr 2e-4) through ``Trainer.train_step`` on one
-              fixed batch: 1 warm-up and 5 timed steps, steps/s, frames/s, the forward /
+              fixed batch, eagerly: 1 warm-up and 5 timed steps, steps/s, frames/s, the forward /
               backward / optimizer split, peak memory; every loss finite, the last total below
-              the first
+              the first.  Then (the ``graphs`` line, part train) ``make_train_step``'s graphs:
+              the capture (warm-up step, seconds, pool), 5 replays and 5 eager steps in turns
+              (steps/s, frames/s), host launches, device busy ms and idle share of one profiled
+              replay and one profiled eager step, peak memory
   10. train_f32 one train step at test size (bs 4, patch 64, repeat_num 2) on the card (TF32
               off) against the port on the CPU: same weights, draws and dropout masks; loss
-              terms, gradients and BN statistics held
+              terms, gradients and BN statistics held.  Then (the ``graphs`` line, part
+              train_replay) at that size with the clip binding, MultiSteps over 2 calls and an
+              ``exp`` schedule of one step an epoch: 4 calls on the graphs against 4 eager calls
+              from the same state and generator (losses, parameters, Adam moments, accumulator,
+              BN statistics), bit for bit where two eager runs agree, else within 4x their
+              difference, and the tensors where two eager runs differ
   11. train_entry ``engine.runner.run`` with ``--mode train --max_epochs 1`` (bf16, bs 64, patch
-              256, the blessed sub-eval flags): K1 = 50 and K2 = 2 launches a sub-eval batch,
-              bf16 steps/s, every bf16 loss finite, ``epoch_1.state`` and ``final_model.pkl``;
+              256, the blessed sub-eval flags) on the train step's graphs, then the same epoch
+              with the step run eagerly: K1 = 50 and K2 = 2 launches a sub-eval batch, bf16
+              steps/s both ways, every bf16 loss finite, ``epoch_1.state`` and ``final_model.pkl``;
               then a resume from ``epoch_1.state`` restores params, BN statistics, optimizer
               moments and step exactly, and ``--max_epochs 2`` trains the second epoch
   12. data    a mini DexYCB tree (256 frames of 640x480 JPEG, every third hand left) in a
@@ -57,7 +69,8 @@ Phases, one output line each:
               the train passes run once more on its numpy forms
   13. preprocess the device preprocess (``--device_preprocess``) of a bs-64 device-mode batch:
               ms per batch (CUDA events) and peak memory, eval (rectilinear warp) and train
-              (two-pass warp and the augmentations), and the source rows the warp reads; on 4
+              (two-pass warp and the augmentations), eagerly and replayed
+              (``make_device_preprocess``'s graph, equal to the eager run bit for bit); on 4
               samples, the card against the port on the CPU in float32 with the same erase
               noise
   14. data_eval ``--mode eval --eval_full --device_preprocess`` on the tree at the blessed config
@@ -65,9 +78,9 @@ Phases, one output line each:
               out; loader wait / preprocess / predict / metrics per batch, K1 = 50 and K2 = 2
               launches a batch, every metric finite
   15. data_train ``--mode train --max_epochs 1 --device_preprocess`` on the tree (f32, bs 64,
-              patch 256, 4 steps, the blessed sub-eval flags): steps/s, loader wait and
-              preprocess per step, finite losses, ``epoch_1.state``; the f32 sub-eval runs K2
-              twice a batch and K1's plain form
+              patch 256, 4 steps, the blessed sub-eval flags), the step on its graphs: steps/s,
+              step spans, loader wait and preprocess per step, finite losses,
+              ``epoch_1.state``; the f32 sub-eval runs K2 twice a batch and K1's plain form
   16. ho3d    a mini HO3D tree (64 train frames, 10 evaluation frames, 640x480 PNG):
               ``--mode infer`` writes both codalab zips with the evaluation frames in
               ``evaluation.txt`` order (each zip row is its frame's prediction in the OpenGL
@@ -85,8 +98,10 @@ Phases, one output line each:
               named ``DexYCB`` (every label read back by ``get_force``; no kernel launched), and
               ``--imagenet_pretrain`` + ``--pretrain x.pth`` through the eval entry point
   18. ddp     data parallelism on the one card (``ddp_phase``): the f32 train step at bs 16,
-              patch 256, TF32 off, in an nccl group of one rank and on two gloo ranks (two
-              processes on cuda:0, 2 x 8) against the undistributed step; the ranks'
+              patch 256, TF32 off, in an nccl group of one rank (eagerly, and on the train
+              step's graphs: a replay, its gradients read back from Adam's first moment) and on
+              two gloo ranks (two processes on cuda:0, 2 x 8, eager) against the undistributed
+              step; the ranks'
               parameters and BN statistics bit-identical; a blessed eval batch of 64 = 2 x 32
               with K1 = 50 and K2 = 2 launches a rank and 64 rows gathered
 Then the card's ``name, power.limit``, the kernels' JSON line and, last, the result line.
@@ -169,6 +184,7 @@ def profiled(fn):
               and e.self_device_time_total > 0]
     return dict(wall_ms=wall_ms, busy_ms=sum(e.self_device_time_total for e in device) / 1e3,
                 kernels={e.key: e.count for e in device},
+                kernel_ms={e.key: e.self_device_time_total / 1e3 for e in device},
                 host_launches={e.key: e.count for e in events if e.key in LAUNCH_CALLS})
 
 
@@ -186,8 +202,9 @@ def digest(tensors) -> str:
 
 
 def train_step_record(trainer, batch, draws, masks, rows):
-    """``trainer.train_step`` on ``batch`` with the global draws and masks given; returns the
-    losses, the gradients the optimizer saw (on the host) and the BN statistics after."""
+    """``trainer.train_step`` run eagerly on ``batch`` with the global draws and masks given;
+    returns the losses, the gradients the optimizer saw (on the host) and the BN statistics
+    after."""
     import torch
 
     from vpho_tpu_torch.engine.trainer import _split_state
@@ -200,12 +217,42 @@ def train_step_record(trainer, batch, draws, masks, rows):
     losses = trainer.train_step(
         {k: v.to(dev) for k, v in batch.items()},
         draws={k: (a.to(dev), b.to(dev)) for k, (a, b) in draws.items()},
-        dropout=DropoutMasks(masks=[m.to(dev) for m in masks], rows=rows))
+        dropout=DropoutMasks(masks=[m.to(dev) for m in masks], rows=rows), eager=True)
     torch.cuda.synchronize()
     stats = {k: v.cpu() for k, v in _split_state(trainer.model)["batch_stats"].items()
              if "running" in k}
     return ({k: v.item() for k, v in losses.items()}, dict(zip(trainer.optimizer.names, seen["g"])),
             stats)
+
+
+def captured_step_record(trainer, batch, draws, masks, rows):
+    """``train_step_record`` on the train step's graphs: the first call (the warm-up and the
+    capture), then the state put back in place and the second call, a replay.  Its gradients
+    are read back from Adam's first moment, which one update from zero makes (1 - b1) g."""
+    import torch
+
+    from vpho_tpu_torch.engine.trainer import _split_state
+    from vpho_tpu_torch.models.layers import DropoutMasks
+
+    dev, opt = trainer.device, trainer.optimizer
+    sd = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    opt_sd = {k: {n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v
+              for k, v in opt.state_dict().items()}
+    args = ({k: v.to(dev) for k, v in batch.items()},
+            {k: (a.to(dev), b.to(dev)) for k, (a, b) in draws.items()}, [m.to(dev) for m in masks])
+    for call in range(2):
+        if call:
+            trainer.model.load_state_dict(sd)
+            opt.load_state_dict(opt_sd)
+        losses = trainer.train_step(args[0], draws=args[1],
+                                    dropout=DropoutMasks(masks=args[2], rows=rows))
+    torch.cuda.synchronize()
+    step = trainer._step("train")
+    check(len(step.graph.graphs) == 1 and opt.count == 1, "captured_step_record: no replay")
+    stats = {k: v.cpu() for k, v in _split_state(trainer.model)["batch_stats"].items()
+             if "running" in k}
+    grads = {n: (m / (1.0 - opt.b1)).cpu() for n, m in zip(opt.names, opt.mu)}
+    return {k: v.item() for k, v in losses.items()}, grads, stats
 
 
 HEADS = ("head_mano", "cross_hand", "cross_obj", "head_physics")
@@ -230,6 +277,100 @@ def bar_used(ref, run):
         used[grp] = max(used.get(grp, 0.0),
                         (g[k] - r).norm().item() / (rtol * r.norm().item() + 1e-4 * scale[grp]))
     return used
+
+
+REPLAY_ARGV = ["--mode", "train", "--batch_size", "4", "--patch_size", "64", "--repeat_num", "2",
+               "--gradient_clip", "1e-3", "--gradient_accumulation_steps", "2", "--scheduler",
+               "exp", "--gamma", "0.5"]
+
+
+def train_calls(dev, out_dir, sd, eager, n=4):
+    """``n`` ``Trainer.train_step`` calls at ``REPLAY_ARGV``'s settings on one batch from the
+    weights ``sd``, randomness from a generator seeded 7: the losses and the moved state by kind
+    (on the host)."""
+    import torch
+
+    from vpho_tpu_torch.configs.config import get_config
+    from vpho_tpu_torch.data import fixtures
+    from vpho_tpu_torch.engine.trainer import Trainer
+
+    trainer = Trainer(get_config(REPLAY_ARGV + ["--output_dir", out_dir]), dev)
+    trainer.init_state(1)
+    trainer.model.load_state_dict(sd)
+    batch = fixtures.make_batch(trainer.ctx, seed=0, batch_size=4, patch_size=64)
+    gen = torch.Generator(dev).manual_seed(7)
+    losses = [trainer.train_step(batch, generator=gen, eager=eager) for _ in range(n)]
+    torch.cuda.synchronize()
+    opt = trainer.optimizer
+    named = {"params": dict(zip(opt.names, opt.params)),
+             "moments": {**{f"mu.{k}": t for k, t in zip(opt.names, opt.mu)},
+                         **{f"nu.{k}": t for k, t in zip(opt.names, opt.nu)}},
+             "acc": dict(zip(opt.names, opt.acc)),
+             "bn": {k: b for k, b in trainer.model.named_buffers() if "running" in k},
+             "losses": {f"call{i}.{k}": v for i, call in enumerate(losses)
+                        for k, v in call.items()}}
+    graphs = None if eager else len(trainer._step("train").graph.graphs)
+    return {kind: {k: v.detach().float().cpu().clone() for k, v in d.items()}
+            for kind, d in named.items()}, graphs
+
+
+def train_replay_phase(dev, card, out_dir):
+    """Phase 10's second part: ``REPLAY_ARGV`` (bs 4, patch 64, f32, TF32 off, the clip binding,
+    MultiSteps over 2 calls, the learning rate moving at every update), 4 calls on the train
+    step's graphs against 4 eager calls from the same state and generator, cuDNN deterministic.
+    Two eager runs first give the noise: the graphs must equal the first bit for bit where the
+    two agree, else stay within 4x their largest relative difference of each kind; a host
+    value baked into a graph would move the parameters by the learning rate's own change."""
+    import warnings
+
+    import torch
+
+    from vpho_tpu_torch.models import vpho as V
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        sd = V.build_model(V.ModelConfig(patch_size=64, repeat_num=2), seed=3,
+                           device=dev).state_dict()
+        (e1, _), (e2, _) = (train_calls(dev, out_dir, sd, eager=True) for _ in range(2))
+        g, n_graphs = train_calls(dev, out_dir, sd, eager=False)
+        rel = lambda a, b: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        kinds, differ = {}, {}
+        for kind in e1:
+            noise = max(rel(e2[kind][k], v) for k, v in e1[kind].items())
+            got = max(rel(g[kind][k], v) for k, v in e1[kind].items())
+            kinds[kind] = dict(eager_vs_eager=noise, graphs_vs_eager=got,
+                               bit_identical=all(torch.equal(g[kind][k], v)
+                                                 for k, v in e1[kind].items()))
+            differ[kind] = [k for k, v in e1[kind].items() if not torch.equal(e2[kind][k], v)]
+            check(got <= 4 * noise, f"train replay {kind}: {got} against eager noise {noise}")
+        # where two eager runs differ: which operations have no deterministic form (warned),
+        # and whether the deterministic forms make two eager runs agree
+        det = None
+        if any(differ.values()):
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    (d1, _), (d2, _) = (train_calls(dev, out_dir, sd, eager=True, n=1)
+                                        for _ in range(2))
+            finally:
+                torch.use_deterministic_algorithms(False)
+            det = dict(agree=all(torch.equal(d2[kind][k], v) for kind in d1
+                                 for k, v in d1[kind].items()),
+                       warned=sorted({str(w.message).split(" does not")[0][:100]
+                                      for w in caught if "deterministic" in str(w.message)}))
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+    check(n_graphs == 1, f"train replay: {n_graphs} graphs")
+    say(phase="graphs", part="train_replay", card=card, batch=4, patch=64, calls=4,
+        settings=" ".join(REPLAY_ARGV[2:]), tf32=False, cudnn_deterministic=True, kinds=kinds,
+        eager_runs_differ_in={k: v[:8] + ([f"... {len(v)} in all"] if len(v) > 8 else [])
+                              for k, v in differ.items()},
+        deterministic_algorithms=det)
 
 
 def ddp_rank(dev, work):
@@ -354,6 +495,14 @@ def ddp_phase(dev, card, eval_argv, kernels):
         nccl_used = held(train_step_record(tr_a, ddp_batch, ddp_draws, ddp_masks,
                                            mesh.batch_rows(16)), "ddp nccl world 1")
         del tr_a
+        torch.cuda.empty_cache()
+        tr_g = Trainer(dcfg, dev)
+        tr_g.init_state(8)
+        tr_g.model.load_state_dict(ddp_sd)
+        nccl_graph_used = held(captured_step_record(tr_g, ddp_batch, ddp_draws, ddp_masks,
+                                                    mesh.batch_rows(16)),
+                               "ddp nccl world 1, the train step's graphs")
+        del tr_g
     finally:
         mesh.shutdown()
     torch.cuda.empty_cache()
@@ -378,7 +527,8 @@ def ddp_phase(dev, card, eval_argv, kernels):
     rank_launches = [r["eval_launches"] for r in (r0, r1)]
     say(phase="ddp", card=card, note="two ranks share one card: not a scaling figure",
         train=dict(batch="16 = 2 x 8", patch=256, repeat_num=R, dtype="float32", tf32=False),
-        nudge_bar_used=noise, nccl_world1_bar_used=nccl_used, gloo_2x8_bar_used=gloo_used,
+        nudge_bar_used=noise, nccl_world1_bar_used=nccl_used,
+        nccl_world1_graphs_bar_used=nccl_graph_used, gloo_2x8_bar_used=gloo_used,
         ranks_bit_identical=identical, gloo_step_s=[r0["step_s"], r1["step_s"]],
         eval=dict(batch="64 = 2 x 32", sample_num=100, steps=50, dtype="bfloat16",
                   launches_per_rank=rank_launches, rows_gathered=r0["eval_rows"],
@@ -863,6 +1013,60 @@ def main() -> int:
     say(phase="eval_f32", samples=n, tf32=torch.backends.cuda.matmul.allow_tf32,
         max_abs_err_m=f32_metric_err, tester_max_abs_err=tester_err)
 
+    # graphs (metrics): an eval batch's metrics at bs 64 (the evaluate loop's 3 hand testers and
+    # 2 object testers), eagerly under the profiler with its parts timed apart, and replayed
+    reg, nb = ctx_gpu.registry, 64
+    rng = np.random.RandomState(12)
+    fdev = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    mgj = fdev(rng.randn(nb, 21, 3) * 0.05 + [0, 0, 0.6])
+    mgv = fdev(rng.randn(nb, 778, 3) * 0.05 + [0, 0, 0.6])
+    mpj, mpv = mgj + fdev(rng.randn(nb, 21, 3) * 0.01), mgv + fdev(rng.randn(nb, 778, 3) * 0.01)
+    mR = TT.axis_angle_to_matrix(fdev(rng.randn(2, nb, 3)))
+    mt = fdev(np.concatenate([rng.randn(2, nb, 2) * 0.02, 0.5 + rng.rand(2, nb, 1) * 0.2], -1))
+    mgt, mpd = (torch.cat([mR[i], mt[i][..., None]], -1) for i in (0, 1))
+    mids = torch.from_numpy(rng.randint(0, 21, nb).astype(np.int32)).to(dev)
+    mcam = cam[:1].repeat(nb, 1, 1).to(dev)
+    ostep = TTE.object_metrics_step(reg)
+    eager_metrics = lambda: ([TM.hand_metrics(mgj, mpj, mgv, mpv) for _ in range(3)]
+                             + [TM.object_metrics(reg, mpd, mgt, mids, mcam) for _ in range(2)])
+    replayed_metrics = lambda: ([TTE.HAND_METRICS(mgj, mpj, mgv, mpv) for _ in range(3)]
+                                + [ostep(mpd, mgt, mids, mcam) for _ in range(2)])
+    m_eager, m_replay = eager_metrics(), replayed_metrics()
+    m_differ = sorted({k for a, b in zip(m_eager, m_replay) for k in a
+                       if not torch.equal(a[k], b[k])})
+    check(not m_differ, f"graphs metrics: replayed rows differ from the eager ones in {m_differ}")
+    m_prof = profiled(eager_metrics)
+    m_top = sorted(m_prof["kernel_ms"].items(), key=lambda kv: -kv[1])[:10]
+    verts = lambda v, rt: TM._apply_rt(v[mids.long()], rt)
+    parts = dict(
+        rigid_align=cuda_ms(lambda: [(TT.rigid_align(mpj, mgj), TT.rigid_align(mpv, mgv))
+                                     for _ in range(3)], 3),
+        distance_blocks_adds=cuda_ms(lambda: [TM.pairwise_min_dist(verts(reg.verts_sampled, mpd),
+                                                                   verts(reg.verts_sampled, mgt))
+                                              for _ in range(2)], 3),
+        distance_blocks_fscore_cd=cuda_ms(lambda: [TM.pairwise_min_dist(
+            verts(reg.verts_full, mpd), verts(reg.verts_full, mgt),
+            reg.verts_full_mask[mids.long()])
+            for _ in range(2)], 3))
+    H = torch.randn(nb, 3, 3, device=dev)
+    torch.linalg.svd(H)                     # the solver's handle, made once
+    svd_wall_ms = wall(lambda: [torch.linalg.svd(H) for _ in range(6)])
+    say(phase="graphs", part="metrics", card=card, batch=nb, testers="3 hand + 2 object",
+        bit_identical=True, eager_ms=cuda_ms(eager_metrics, 3),
+        replayed_ms=cuda_ms(replayed_metrics, 5),
+        eager_profile=dict(wall_ms=m_prof["wall_ms"], device_busy_ms=m_prof["busy_ms"],
+                           device_idle_share=1.0 - m_prof["busy_ms"] / m_prof["wall_ms"],
+                           kernels=sum(m_prof["kernels"].values()),
+                           host_launches=sum(m_prof["host_launches"].values()),
+                           copy_cast=dict(
+                               kernels=sum(c for k, c in m_prof["kernels"].items()
+                                           if "copy" in k.lower() or "cast" in k.lower()),
+                               ms=sum(t for k, t in m_prof["kernel_ms"].items()
+                                      if "copy" in k.lower() or "cast" in k.lower())),
+                           top=[[k[:70], round(t, 3), m_prof["kernels"][k]] for k, t in m_top]),
+        eager_parts_ms=parts, verts_full=int(reg.verts_full.shape[1]),
+        svd_of_the_parent_form_wall_ms=svd_wall_ms)
+
     # ---- 8. modes: every integrator and aggregation choice at full width, bf16 -------------
     # (the candidate batches through make_candidate_step: captured, then one replay timed)
     modes, steps, held = {}, 10, {}
@@ -966,7 +1170,7 @@ def main() -> int:
     for i in range(1 + n_timed):
         torch.cuda.synchronize()
         t_start = time.perf_counter()
-        losses = trainer_t.train_step(tbatch, generator=tgen)
+        losses = trainer_t.train_step(tbatch, generator=tgen, eager=True)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t_start)
         vals = {k: v.item() for k, v in losses.items()}
@@ -979,9 +1183,10 @@ def main() -> int:
     # one more step counting its operations (forward and backward), one under torch.profiler
     from vpho_tpu_torch.engine.profiling import flops_of
 
-    step_flops = flops_of(lambda: trainer_t.train_step(tbatch, generator=tgen))[1]["flops"]
+    eager_step = lambda: trainer_t.train_step(tbatch, generator=tgen, eager=True)
+    step_flops = flops_of(eager_step)[1]["flops"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tprof:
-        tprof_ms = wall(lambda: trainer_t.train_step(tbatch, generator=tgen))
+        tprof_ms = wall(eager_step)
     tstats = [e for e in tprof.key_averages() if e.self_device_time_total > 0
               and e.device_type == torch.autograd.DeviceType.CUDA]
     tbusy_ms = sum(e.self_device_time_total for e in tstats) / 1e3
@@ -998,7 +1203,40 @@ def main() -> int:
         profile=dict(wall_ms=tprof_ms, device_busy_ms=tbusy_ms, device_idle_share=1.0 - tbusy_ms / tprof_ms,
                      launches=sum(e.count for e in tstats),
                      top=[[e.key[:70], round(e.self_device_time_total / 1e3, 3), e.count] for e in ttop]))
-    del trainer_t, tbatch, losses
+
+    # graphs (train): make_train_step's graphs on the same trainer and batch.  The first call
+    # is the warm-up step and the capture; then 5 replays and 5 eager steps in turns
+    replay_step = lambda: trainer_t.train_step(tbatch, generator=tgen)
+    torch.cuda.reset_peak_memory_stats()
+    capture_call_ms = wall(replay_step)
+    tstep = trainer_t._step("train")
+    tgraph = next(iter(tstep.graph.graphs.values()))[1]
+    t_eager_ms, t_replay_ms, replay_losses = [], [], []
+    for _ in range(5):
+        t_eager_ms.append(wall(eager_step))
+        t_replay_ms.append(wall(lambda: replay_losses.append(replay_step())))
+    for i, rl in enumerate(replay_losses):
+        vals = {k: v.item() for k, v in rl.items()}
+        check(len(vals) == 14 and all(math.isfinite(v) for v in vals.values()),
+              f"graphs train: replay {i} losses {vals}")
+    t_rep = profiled(replay_step)
+    t_eag = profiled(eager_step)
+    graphs_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    trainer_t.train_timing()
+    say(phase="graphs", part="train", card=card, batch=64, patch=256, repeat_num=20,
+        dtype="float32", capture_call_ms=capture_call_ms, capture_s=tgraph.seconds,
+        pool_gb=tgraph.pool_bytes / 1e9, step_ms=dict(eager=t_eager_ms, replayed=t_replay_ms),
+        steps_per_s=dict(eager=5e3 / sum(t_eager_ms), replayed=5e3 / sum(t_replay_ms)),
+        frames_per_s=dict(eager=64 * 5e3 / sum(t_eager_ms), replayed=64 * 5e3 / sum(t_replay_ms)),
+        replayed=window(t_rep), eager=window(t_eag), peak_mem_gb=graphs_peak_gb,
+        replayed_kernel_launches={"bank_mlp": count_named(t_rep["kernels"], "bank_mlp_kernel"),
+                                  "min_dist": count_named(t_rep["kernels"], "min_dist_kernel")})
+    check(count_named(t_rep["kernels"], "bank_mlp_kernel") == 0
+          and count_named(t_rep["kernels"], "min_dist_kernel") == 0,
+          "graphs train: a replayed train step launched a hand-written kernel")
+    for name in kernels:
+        kernels[name]["launches_by_path"]["train_step_replayed"] = 0
+    del trainer_t, tbatch, losses, tstep, tgraph, replay_losses
     torch.cuda.empty_cache()
 
     # ---- 10. train_f32: one small train step on the card against the port on the CPU -----
@@ -1063,6 +1301,7 @@ def main() -> int:
     for grp, used in bar_used.items():
         check(used <= 1.0, f"train_f32 gradients {grp}: {used} of the bar")
     check(bn_rel <= 1e-3, f"train_f32 BN statistics {bn_rel}")
+    train_replay_phase(dev, card, os.path.join("output", "chip_smoke_train_replay"))
 
     # ---- 11. train_entry: --mode train through the entry point, bf16 ---------------------
     import glob
@@ -1089,6 +1328,20 @@ def main() -> int:
     check(os.path.isfile(ckpt) and os.path.isfile(os.path.join(tr1.save_dir, "final_model.pkl")),
           f"train_entry files in {tr1.save_dir}")
     check(tr1.step == 8 and tr1.optimizer.count == 8, f"train_entry steps {tr1.step}")
+    check(len(tr1._step("train").graph.graphs) == 1 and not lt["forward_s"],
+          "train_entry: the epoch did not run on the train step's graphs")
+    # the same epoch with the step run eagerly (graphs.capturable answering no), for its rate
+    from vpho_tpu_torch.engine import graphs as GR
+
+    capturable = GR.capturable
+    GR.capturable = lambda device: False
+    try:
+        tr_e = runner.run(get_config(entry_argv))
+    finally:
+        GR.capturable = capturable
+    le = tr_e.last_train
+    check(len(le["forward_s"]) == 8, "train_entry: the eager epoch ran on graphs")
+    del tr_e
     # resume: the state restored from epoch_1.state before the first resumed step
     resume_argv = entry_argv[:2] + ["--max_epochs", "2"] + entry_argv[4:] + ["--checkpoint", ckpt]
     tr2 = Trainer(get_config(resume_argv), dev)
@@ -1107,12 +1360,16 @@ def main() -> int:
     check(tr3.start_epoch == 1 and K1.launches == 100 and K2.launches == 4,
           f"resumed run launches {K1.launches}, {K2.launches}")
     say(phase="train_entry", dtype="bfloat16", batch=64, patch=256, steps=lt["steps"],
-        epoch_s=lt["seconds"], steps_per_s=lt["steps"] / lt["seconds"],
-        frames_per_s=64 * lt["steps"] / lt["seconds"],
-        # device-stream spans of the steps after the first (the first also tunes cuDNN)
-        steady_split_ms={k[:-2]: sum(lt[k][1:]) / (lt["steps"] - 1) * 1e3
-                         for k in ("forward_s", "backward_s", "optimizer_s")},
-        first_step_ms={k[:-2]: lt[k][0] * 1e3 for k in ("forward_s", "backward_s", "optimizer_s")},
+        path="make_train_step, replayed", epoch_s=lt["seconds"],
+        steps_per_s=lt["steps"] / lt["seconds"], frames_per_s=64 * lt["steps"] / lt["seconds"],
+        # device-stream spans of the steps after the first (the first is the warm-up, the
+        # capture, and cuDNN's tuning)
+        steady_step_ms=sum(lt["step_s"][1:]) / (lt["steps"] - 1) * 1e3,
+        first_step_ms=lt["step_s"][0] * 1e3,
+        eager=dict(epoch_s=le["seconds"], steps_per_s=le["steps"] / le["seconds"],
+                   frames_per_s=64 * le["steps"] / le["seconds"],
+                   steady_split_ms={k[:-2]: sum(le[k][1:]) / (le["steps"] - 1) * 1e3
+                                    for k in ("step_s", "forward_s", "backward_s", "optimizer_s")}),
         last_losses=lt["losses"], wall_s=entry_wall_s, sub_eval_batches=n_sub,
         launches=entry_launches,
         files=sorted(os.path.relpath(f, tr1.save_dir) for f in glob.glob(os.path.join(tr1.save_dir, "**"), recursive=True) if os.path.isfile(f)),
@@ -1130,9 +1387,9 @@ def main() -> int:
 
     from vpho_tpu_torch.data import codec
     from vpho_tpu_torch.data import dexycb as DX
-    from vpho_tpu_torch.data.device_pipeline import draw_erase_noise, preprocess_batch
+    from vpho_tpu_torch.data.device_pipeline import (draw_erase_noise, make_device_preprocess,
+                                                     preprocess_batch)
     from vpho_tpu_torch.data.fixtures_disk import build_mini_dexycb, build_mini_ho3d
-    from vpho_tpu_torch.ops.image import warp_source_rows
 
     from vpho_tpu_torch import native as NAT
 
@@ -1186,7 +1443,7 @@ def main() -> int:
         items_per_s=loader_rate, items_per_s_numpy_forms=numpy_rate)
 
     # ---- 13. preprocess: the device preprocess at bs 64 ------------------------------------
-    pre_ms, pre_peak_gb, pre_err, pre_rows = {}, {}, {}, {}
+    pre_ms, pre_peak_gb, pre_err, pre_graph = {}, {}, {}, {}
     for split, is_train in (("eval", False), ("train", True)):
         dcfg = get_config(["--data_dir", dex_root, "--patch_size", str(patch),
                            "--device_preprocess"])
@@ -1198,7 +1455,6 @@ def main() -> int:
         kw = dict(patch_size=patch, heatmap_size=64, hand_sigma=2.0, obj_sigma=2.0,
                   is_train=is_train)
         run_pre = lambda: preprocess_batch(raw, noise=noise, **kw)
-        pre_rows[split] = warp_source_rows(raw["warp_minv"], patch, raw["rgb_full"].shape[1])
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1208,6 +1464,18 @@ def main() -> int:
         pre_ms[split] = cuda_ms(run_pre, 10)
         check(out["rgb"].device.type == "cuda" and tuple(out["rgb"].shape) == (bs, patch, patch, 3)
               and bool(torch.isfinite(out["rgb"]).all()), f"preprocess {split} rgb")
+        # the graph (make_device_preprocess): captured at its first call, then replayed
+        pre_step = make_device_preprocess(dcfg, is_train)
+        t_start = time.perf_counter()
+        pre_step(raw, noise=noise)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t_start
+        replayed = pre_step(raw, noise=noise)
+        differ = sorted(k for k in out if not torch.equal(replayed[k], out[k]))
+        check(not differ, f"preprocess {split}: the replay differs from the eager run in {differ}")
+        pre_graph[split] = dict(bit_identical=True, capture_with_warmup_s=capture_s,
+                                replayed_ms=cuda_ms(lambda: pre_step(raw, noise=noise), 10))
+        del pre_step, replayed
         # the card against the CPU, float32, on 4 samples with the same noise
         four = {k: v[:4] for k, v in raw.items()}
         n4 = None if noise is None else noise[:4]
@@ -1221,8 +1489,9 @@ def main() -> int:
               f"preprocess {split}: card vs CPU {pre_err[split]}")
         del raw, out, host
     say(phase="preprocess", batch=bs, patch=patch, frame="640x480", ms=pre_ms,
-        peak_mem_gb=pre_peak_gb, source_rows=pre_rows, card_vs_cpu_max_abs_err=pre_err,
-        band=dict(rgb=2e-4, heatmaps=1e-5))
+        peak_mem_gb=pre_peak_gb, graphs=pre_graph,
+        warp="pass 1 resamples all 480 source rows (no host-read window): one graph a signature",
+        card_vs_cpu_max_abs_err=pre_err, band=dict(rgb=2e-4, heatmaps=1e-5))
 
     # ---- 14. data_eval: --mode eval on the tree, device preprocess, blessed config ---------
     blessed = ["--eval_batch_size", str(bs), "--patch_size", str(patch), "--sample_num", "100",
@@ -1283,11 +1552,13 @@ def main() -> int:
     n_sub = len(tr_dt.last_eval["timing"]["frames"])
     check(K1.launches == 0 and K2.launches == 2 * n_sub,
           f"data_train sub-eval launches {K1.launches}, {K2.launches}")
+    check(len(tr_dt._step("train").graph.graphs) == 1 and not lt["forward_s"],
+          "data_train: the epoch did not run on the train step's graphs")
     say(phase="data_train", dtype="float32", batch=bs, patch=patch, steps=lt["steps"],
-        epoch_s=lt["seconds"], steps_per_s=lt["steps"] / lt["seconds"], wait_ms=[w * 1e3 for w in lt["wait_s"]],
+        path="make_train_step, replayed", epoch_s=lt["seconds"],
+        steps_per_s=lt["steps"] / lt["seconds"], wait_ms=[w * 1e3 for w in lt["wait_s"]],
         preprocess_ms=[p * 1e3 for p in lt["preprocess_s"]],
-        step_split_ms={k[:-2]: [v * 1e3 for v in lt[k]] for k in
-                       ("forward_s", "backward_s", "optimizer_s")},
+        step_ms=[v * 1e3 for v in lt["step_s"]],
         last_losses=lt["losses"], wall_s=dt_wall, sub_eval_batches=n_sub,
         sub_eval_launches={"bank_mlp": K1.launches, "min_dist": K2.launches})
     del tr_dt

@@ -2,7 +2,9 @@
 PyTorch versions on the card, one training step on the card, the device preprocess
 (``--device_preprocess``) on the card against itself on the CPU, and the captured steps
 (``engine/graphs.py``): a replay equal to the eager run bit for bit, the kernels' tallies
-counting replayed launches, a capture that would wait on the device refused.
+counting replayed launches, a capture that would wait on the device refused; the train step's
+graphs against eager steps (also in an nccl group of one rank), the metric and preprocess
+graphs against their eager runs.
 
 There is no CPU mode for a CUDA kernel, so every test here needs an NVIDIA GPU and skips
 without one.  This file imports neither jax nor ``vpho_tpu``, so on a machine with a card and
@@ -198,8 +200,8 @@ def test_force_optim_on_the_card_matches_the_cpu(cuda_device):
 
 
 def test_nccl_world_of_one_matches_the_undistributed_step(cuda_device, tmp_path):
-    """``Trainer.train_step`` in an nccl process group of one rank (the gradients through the
-    NCCL all-reduce, batch norm through its cross-rank path) against
+    """``Trainer.train_step`` run eagerly in an nccl process group of one rank (the gradients
+    through the NCCL all-reduce, batch norm through its cross-rank path) against
     the same step with no process group, TF32 off, with ``test_torch_port_train``'s bars: loss
     terms rtol 1e-4; gradients per parameter rtol 1e-3 (heads), 1e-2 (denoisers), 0.15 (trunk:
     train-mode BN at bs 4 is ill-conditioned, and the two paths sum in other orders) plus
@@ -234,7 +236,8 @@ def test_nccl_world_of_one_matches_the_undistributed_step(cuda_device, tmp_path)
                                                 step(g))[1]
             losses = trainer.train_step(
                 batch, draws={k: (a.cuda(), b.cuda()) for k, (a, b) in draws.items()},
-                dropout=DropoutMasks(masks=[m.cuda() for m in masks], rows=mesh.batch_rows(4)))
+                dropout=DropoutMasks(masks=[m.cuda() for m in masks], rows=mesh.batch_rows(4)),
+                eager=True)
             stats = {k: v for k, v in _split_state(trainer.model)["batch_stats"].items()
                      if "running" in k}
             runs.append((losses, dict(zip(trainer.optimizer.names, seen["g"])), stats))
@@ -367,3 +370,166 @@ def test_force_graphs_replay_the_eager_loop(cuda_device):
             assert torch.equal(graphs[k], eager[k]), k
     assert FO._LOOPS[(8, inputs[0].device, 50)].graphs is not None
     assert (K1.launches, K2.launches) == before
+
+
+# ---- the train step, the metrics and the preprocess as graphs ------------------------------
+
+TRAIN_ARGV = ["--mode", "train", "--batch_size", "4", "--patch_size", "64", "--repeat_num", "2",
+              "--gradient_clip", "1e-3", "--gradient_accumulation_steps", "2", "--scheduler",
+              "exp", "--gamma", "0.5"]
+
+
+def _train_state(trainer):
+    """The tensors a train call moves, by kind."""
+    opt = trainer.optimizer
+    return {"params": opt.params, "moments": opt.mu + opt.nu, "acc": opt.acc,
+            "bn": [b for b in trainer.model.buffers() if b.is_floating_point()]}
+
+
+def _four_calls(device, tmp_path, sd, eager):
+    """4 ``Trainer.train_step`` calls on one batch from the weights ``sd``, the randomness from
+    a generator seeded 7; returns the losses and the moved state, on the host."""
+    from vpho_tpu_torch.configs.config import get_config
+    from vpho_tpu_torch.data import fixtures
+    from vpho_tpu_torch.engine.trainer import Trainer
+
+    trainer = Trainer(get_config(TRAIN_ARGV + ["--output_dir", str(tmp_path)]), device)
+    trainer.init_state(1)
+    trainer.model.load_state_dict(sd)
+    batch = fixtures.make_batch(trainer.ctx, seed=0, batch_size=4, patch_size=64)
+    gen = torch.Generator(device).manual_seed(7)
+    losses = [trainer.train_step(batch, generator=gen, eager=eager) for _ in range(4)]
+    torch.cuda.synchronize()
+    if not eager:
+        step = trainer._step("train")
+        assert len(step.graph.graphs) == 1 and step.apply_graph is not None
+    state = {k: [t.detach().cpu().clone() for t in v] for k, v in _train_state(trainer).items()}
+    state["losses"] = [torch.stack([v.float() for v in call.values()]).cpu() for call in losses]
+    return state
+
+
+def _rel(a, b):
+    return max(((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item()
+               for x, y in zip(a, b))
+
+
+def _replays_hold_to_the_eager_noise(device, tmp_path):
+    """Two eager runs and one run on graphs from the same state: the graphs equal the first
+    eager run bit for bit where the two eager runs agree bit for bit; where they do not (a
+    backward summing with atomics), each kind of state within 4x the eager runs' largest
+    relative difference of that kind.  Returns {kind: (eager noise, graphs' difference)}."""
+    from vpho_tpu_torch.models import vpho as V
+
+    sd = V.build_model(V.ModelConfig(patch_size=64, repeat_num=2), seed=3,
+                       device=device).state_dict()
+    e1, e2 = (_four_calls(device, tmp_path, sd, eager=True) for _ in range(2))
+    g = _four_calls(device, tmp_path, sd, eager=False)
+    out = {}
+    for kind in e1:
+        noise, got = _rel(e2[kind], e1[kind]), _rel(g[kind], e1[kind])
+        out[kind] = (noise, got)
+        assert got <= 4 * noise, (kind, noise, got)
+    return out
+
+
+def test_train_step_replays_equal_eager_steps(cuda_device, tmp_path):
+    """bs 4, patch 64, f32, TF32 off, cuDNN deterministic; the clip binds, MultiSteps over 2
+    calls, ``exp`` at one step an epoch (every update its own learning rate): 4 calls on
+    ``make_train_step``'s graphs (call 1 the warm-up and capture, 2-4 replays; the update's
+    graph captured at call 2 and replayed at 4) against 4 eager calls, losses, parameters, Adam
+    moments, accumulator and BN statistics (``_replays_hold_to_the_eager_noise``)."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        _replays_hold_to_the_eager_noise(cuda_device, tmp_path)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def test_train_step_captured_in_an_nccl_world_of_one(cuda_device, tmp_path):
+    """The same 4 calls in an nccl process group of one rank: the cross-rank batch norm's and
+    the gradients' NCCL all-reduces are captured in the graph, and the replays hold to the
+    eager steps in that group as above."""
+    from vpho_tpu_torch.engine import graphs as G
+    from vpho_tpu_torch.parallel import mesh
+
+    mesh.init_distributed(torch.device("cuda", 0), backend="nccl", world=1, rank_=0,
+                          init_method=f"tcp://localhost:{mesh.free_port()}")
+    torch.backends.cudnn.deterministic = True
+    try:
+        assert G.capturable(cuda_device)
+        _replays_hold_to_the_eager_noise(cuda_device, tmp_path)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        mesh.shutdown()
+
+
+def test_metric_and_preprocess_replays_equal_eager_runs(cuda_device, tmp_path):
+    """``hand_metrics``, ``object_metrics`` and the eval and train device preprocess as graphs
+    (two replays each, on other inputs than the capture's) equal the functions run eagerly,
+    bit for bit."""
+    from vpho_tpu_torch.configs.config import Config
+    from vpho_tpu_torch.data import dexycb as D
+    from vpho_tpu_torch.data.device_pipeline import (draw_erase_noise, make_device_preprocess,
+                                                     preprocess_batch)
+    from vpho_tpu_torch.data.fixtures_disk import build_mini_dexycb
+    from vpho_tpu_torch.engine import metrics as M
+    from vpho_tpu_torch.engine import tester as TE
+    from vpho_tpu_torch.models import vpho as V
+    from vpho_tpu_torch.utils import transforms as TR
+
+    reg = V.make_context(V.ModelConfig(), device=cuda_device).registry
+    rng = np.random.RandomState(0)
+    for seed in range(3):
+        f = lambda *s: torch.from_numpy((rng.randn(*s) * 0.05 + [0, 0, 0.6]).astype(np.float32)
+                                        ).to(cuda_device)
+        hand = (f(8, 21, 3), f(8, 21, 3), f(8, 778, 3), f(8, 778, 3))
+        R = TR.axis_angle_to_matrix(torch.from_numpy(rng.randn(2, 8, 3).astype(np.float32)))
+        rts = [torch.cat([r.to(cuda_device), f(8, 3)[..., None]], -1) for r in R]
+        ids = torch.from_numpy(rng.randint(0, 21, 8).astype(np.int32)).to(cuda_device)
+        K = torch.tensor([[300.0, 0, 128], [0, 300.0, 128], [0, 0, 1]],
+                         device=cuda_device).repeat(8, 1, 1)
+        for got, ref in ((TE.HAND_METRICS(*hand), M.hand_metrics(*hand)),
+                         (TE.object_metrics_step(reg)(*rts, ids, K),
+                          M.object_metrics(reg, *rts, ids, K))):
+            assert set(got) == set(ref) and all(torch.equal(got[k], ref[k]) for k in ref)
+    root = build_mini_dexycb(str(tmp_path), n=8, seed=3, sides=["right", "left"] * 4)
+    cfg = Config(data_dir=root, patch_size=128, device_preprocess=True)
+    for is_train in (False, True):
+        ds = D.DexYCBForceDataset(cfg, root, is_train=is_train)
+        pre = make_device_preprocess(cfg, is_train)
+        for lo in (0, 4, 0):
+            raw = {k: torch.as_tensor(v).to(cuda_device)
+                   for k, v in D.collate([ds[i] for i in range(lo, lo + 4)]).items()}
+            noise = draw_erase_noise(raw, 128, cfg.random_erasing_mode,
+                                     torch.Generator(cuda_device).manual_seed(lo)) \
+                if is_train else None
+            got = pre(raw, noise=noise)
+            ref = preprocess_batch(raw, 128, cfg.heatmap_size, cfg.heatmap_hand_sigma,
+                                   cfg.heatmap_obj_sigma, is_train, cfg.random_erasing_mode,
+                                   noise=noise)
+            assert set(got) == set(ref) and all(torch.equal(got[k], ref[k]) for k in ref)
+
+
+def test_train_capture_refuses_a_host_wait(cuda_device, tmp_path, monkeypatch):
+    """A train step that reads a value back to the host (here the physics losses, patched to
+    read their sum) is refused at its warm-up under ``set_sync_debug_mode("error")``, and the
+    error names the port's line that made the call."""
+    from vpho_tpu_torch.configs.config import get_config
+    from vpho_tpu_torch.data import fixtures
+    from vpho_tpu_torch.engine.trainer import Trainer
+    from vpho_tpu_torch.models import heads
+
+    real = heads.physics_losses
+
+    def reads_back(*args):
+        out = real(*args)
+        float(sum(out.values()))
+        return out
+
+    monkeypatch.setattr(heads, "physics_losses", reads_back)
+    trainer = Trainer(get_config(TRAIN_ARGV + ["--output_dir", str(tmp_path)]), cuda_device)
+    trainer.init_state(1)
+    batch = fixtures.make_batch(trainer.ctx, seed=0, batch_size=4, patch_size=64)
+    with pytest.raises(RuntimeError, match=r"train_step: CUDA graph warm-up failed at "
+                                           r"models/vpho\.py:\d+ `.*physics_losses"):
+        trainer.train_step(batch, generator=torch.Generator(cuda_device).manual_seed(0))

@@ -210,6 +210,73 @@ def test_steps_make_no_host_wait(dtype):
             method
 
 
+def _train_step_scan(tmp_path):
+    """The train step's device work (graph A: forward, backward, MultiSteps' accumulation; graph
+    B: the clipped AdamW update), on masks and draws given as its inputs."""
+    from vpho_tpu_torch.configs.config import get_config
+
+    cfg = get_config(["--mode", "train", "--batch_size", "2", "--patch_size", "64",
+                      "--repeat_num", "2", "--gradient_clip", "1e-3",
+                      "--gradient_accumulation_steps", "2", "--output_dir", str(tmp_path)])
+    trainer = TT.Trainer(cfg, device="cpu")
+    trainer.init_state(1)
+    step, opt = TT.make_train_step(trainer.model, trainer.ctx, trainer.optimizer), trainer.optimizer
+    batch = tfix.make_batch(trainer.ctx, seed=0, batch_size=2, patch_size=64)
+    gen = torch.Generator().manual_seed(0)
+    opt.advance()
+    step._device_step(batch, None, None, gen)             # its warm-up: the masks' shapes
+    masks = step.draw_masks([tuple(m.shape) for m in step._drawn], gen)
+    draws = step.draw_score(2, gen)
+    opt.advance()
+
+    def graphs():
+        step._device_step(batch, masks, draws)
+        opt.apply()
+    return graphs
+
+
+def _metric_steps_scan(tmp_path):
+    from vpho_tpu_torch.engine import tester as TE
+    from vpho_tpu_torch.models.vpho import make_context
+
+    ctx = make_context(TV.ModelConfig(), device="cpu")
+    rng = np.random.RandomState(0)
+    f = lambda *shape: torch.from_numpy((rng.randn(*shape) * 0.05 + [0, 0, 0.6]).astype(np.float32))
+    rt = torch.cat([TTR.axis_angle_to_matrix(torch.from_numpy(rng.randn(4, 3).astype(np.float32))),
+                    f(4, 3)[..., None]], -1)
+    K = torch.tensor([[300.0, 0, 128], [0, 300.0, 128], [0, 0, 1]]).repeat(4, 1, 1)
+    ids = torch.tensor([0, 5, 11, 20], dtype=torch.int32)
+    hand_args = (f(4, 21, 3), f(4, 21, 3), f(4, 778, 3), f(4, 778, 3))
+    return lambda: (TE.HAND_METRICS(*hand_args),
+                    TE.object_metrics_step(ctx.registry)(rt, rt + 0.01, ids, K))
+
+
+def _preprocess_scan(tmp_path):
+    from vpho_tpu_torch.configs.config import Config
+    from vpho_tpu_torch.data import dexycb as D
+    from vpho_tpu_torch.data.device_pipeline import make_device_preprocess
+    from vpho_tpu_torch.data.fixtures_disk import build_mini_dexycb
+
+    root = build_mini_dexycb(str(tmp_path / "dex"), n=2, seed=3, sides=["right", "left"])
+    runs = []
+    for is_train in (False, True):
+        cfg = Config(data_dir=root, patch_size=64, device_preprocess=True)
+        ds = D.DexYCBForceDataset(cfg, root, is_train=is_train)
+        raw = {k: torch.as_tensor(v) for k, v in D.collate([ds[0], ds[1]]).items()}
+        pre = make_device_preprocess(cfg, is_train)
+        gen = torch.Generator().manual_seed(0)
+        runs.append(lambda pre=pre, raw=raw, gen=gen: pre(raw, generator=gen))
+    return lambda: [run() for run in runs]
+
+
+@pytest.mark.parametrize("make", [_train_step_scan, _metric_steps_scan, _preprocess_scan],
+                         ids=["train", "metrics", "preprocess"])
+def test_train_metric_and_preprocess_steps_make_no_host_wait(make, tmp_path):
+    """``test_steps_make_no_host_wait``'s scan over the other captured steps: the train step
+    (with the clip and accumulation), both metric steps, and the eval and train preprocess."""
+    assert _scan(make(tmp_path)) == {}
+
+
 @pytest.fixture(scope="module")
 def force_case():
     """tests/test_torch_port_force.py's case: B = 3 synthetic-MANO hands, some anchors under

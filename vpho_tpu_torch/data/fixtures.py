@@ -54,16 +54,22 @@ def make_batch(ctx, seed: int = 0, batch_size: int = 2, patch_size: int = 128,
                      ctx.device)
 
 
+def host_context(ctx):
+    """``ctx`` with its MANO and object constants on the host (itself when they are there): a
+    stream built on it in a loader thread copies nothing from the device, which could meet a
+    CUDA graph's warm-up or capture, under the process-wide ``set_sync_debug_mode("error")``,
+    in the main thread."""
+    on_host = lambda nt: type(nt)(*[t.cpu() if isinstance(t, torch.Tensor) else t for t in nt])
+    return ctx._replace(mano=on_host(ctx.mano), registry=on_host(ctx.registry))
+
+
 def make_arrays(ctx, seed: int = 0, batch_size: int = 2, patch_size: int = 128,
                 heatmap_size: int = 64, signal: bool = False) -> Dict[str, np.ndarray]:
     """:func:`make_batch` as host numpy arrays."""
     rng = np.random.RandomState(seed)
     B, P = batch_size, patch_size
-    cpu = torch.device("cpu")
-    mano_cpu = type(ctx.mano)(*[t.to(cpu) if isinstance(t, torch.Tensor) else t
-                                for t in ctx.mano])
-    registry_cpu = type(ctx.registry)(*[t.to(cpu) if isinstance(t, torch.Tensor) else t
-                                        for t in ctx.registry])
+    host = host_context(ctx)
+    mano_cpu, registry_cpu = host.mano, host.registry
 
     gt_pose = (rng.randn(B, 48) * 0.2).astype(np.float32)
     gt_shape = (rng.randn(B, 10) * 0.3).astype(np.float32)

@@ -160,6 +160,16 @@ def ode_sampler(score_fn: ScoreFn, x0: torch.Tensor, sde: SDE, T0: float, num_st
     return (torch.stack(traj, dim=1), x) if return_trajectory else x
 
 
+def draw_score_noise(n: int, dim: int, sde: SDE, generator: Optional[torch.Generator],
+                     device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The score loss's draws for ``n`` rows: ``(random_t (n, 1) uniform on [eps, 1), z (n, dim)
+    standard normal)``, in that order, from ``generator`` (torch's default when None)."""
+    gdev = generator.device if generator is not None else device
+    u = torch.rand((n, 1), generator=generator, device=gdev).to(device)
+    z = torch.randn((n, dim), generator=generator, device=gdev).to(device)
+    return u * (1.0 - sde.eps) + sde.eps, z
+
+
 def score_matching_loss(score_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
                         feat: torch.Tensor, gt_pose: torch.Tensor, sde: SDE, repeat_num: int = 20,
                         random_t: Optional[torch.Tensor] = None, z: Optional[torch.Tensor] = None,
@@ -170,19 +180,17 @@ def score_matching_loss(score_fn: Callable[[torch.Tensor, torch.Tensor, torch.Te
     score, N = repeat_num * B; row r * B + b is draw r of sample b.
 
     The draws are inputs: ``random_t`` (N, 1), uniform on [eps, 1), and ``z`` (N, D), standard
-    normal; those not given are drawn from ``generator`` (torch's default when None).  With
+    normal, both given or both drawn from ``generator`` (torch's default when None,
+    ``draw_score_noise``).  With
     ``rows`` = ``(lo, hi, global_batch)`` (a data-parallel rank's slice of the batch) the draws
     are made, or given, at the global batch and samples ``lo:hi`` of each draw are used."""
     bs, dim = gt_pose.shape
     total = bs if rows is None else rows[2]
     n = repeat_num * total
-    dev = gt_pose.device
-    gdev = generator.device if generator is not None else dev
+    if (random_t is None) != (z is None):
+        raise ValueError("score_matching_loss takes both draws (random_t, z) or neither")
     if random_t is None:
-        u = torch.rand((n, 1), generator=generator, device=gdev).to(dev)
-        random_t = u * (1.0 - sde.eps) + sde.eps
-    if z is None:
-        z = torch.randn((n, dim), generator=generator, device=gdev).to(dev)
+        random_t, z = draw_score_noise(n, dim, sde, generator, gt_pose.device)
     if rows is not None:
         take = lambda d: d.reshape(repeat_num, total, -1)[:, rows[0]:rows[1]].reshape(
             repeat_num * bs, -1)

@@ -90,24 +90,24 @@ class DeviceStepAdamW(Optimizer):
     """``Optimizer``'s adamw at a constant learning rate, its step count on the device.
 
     The bias corrections of steps 1..``total`` are a float32 table, each entry computed on the
-    host exactly as ``Optimizer`` computes it, and a device counter indexes the table and
-    advances with every update.  So a captured update applies step k's corrections on its k-th
-    replay, bit for bit what the eager loop applies; ``reset`` starts again at step 1."""
+    host exactly as ``Optimizer`` computes it, and ``advance`` copies entry ``step_t`` (a device
+    counter) into ``scalars`` and moves the counter on, on the device.  So a captured update
+    applies step k's corrections on its k-th replay, bit for bit what the eager loop applies;
+    ``reset`` starts again at step 1."""
 
     def __init__(self, params: Dict[str, torch.Tensor], lr: float, total: int):
         super().__init__(params, "adamw", lambda step: lr)
         dev = self.params[0].device
-        table = lambda b: torch.tensor([float(_F32(1.0) - _F32(b) ** _F32(c))
-                                        for c in range(1, max(total, 1) + 1)], device=dev)
-        self.bc1, self.bc2 = table(self.b1), table(self.b2)
+        self.bc = torch.tensor([[float(_F32(1.0) - _F32(b) ** _F32(c)) for b in (self.b1, self.b2)]
+                                for c in range(1, max(total, 1) + 1)], device=dev)
         self.step_t = torch.zeros(1, dtype=torch.long, device=dev)
-        self.lr = lr
+        self.scalars[self.LR] = float(_F32(lr))
 
-    def _corrections(self):
-        bc1 = self.bc1.index_select(0, self.step_t).reshape(())
-        bc2 = self.bc2.index_select(0, self.step_t).reshape(())
+    def advance(self) -> bool:
+        self.scalars[self.BC1:self.BC2 + 1] = self.bc.index_select(0, self.step_t)[0]
         self.step_t.add_(1)
-        return bc1, bc2, self.lr
+        self.count += 1
+        return True
 
     @torch.no_grad()
     def reset(self) -> None:

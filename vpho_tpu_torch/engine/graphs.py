@@ -25,6 +25,9 @@ replayed with one host launch:
     adds those moves again, so the tallies count the launches that ran.
   * Every capture is logged once (``vpho_torch`` logger, the run's ``info.log``): the step's
     name, the signature, its seconds and the memory its pool reserved.
+  * ``capturable(device)`` is the one place that decides whether a step on ``device`` is
+    captured: a card without a process group or on an nccl group is; the CPU and a gloo group
+    (whose collectives run through the host and cannot join a graph) run eagerly.
 """
 from __future__ import annotations
 
@@ -64,6 +67,46 @@ def no_host_sync():
         torch.cuda.set_sync_debug_mode(prev)
 
 
+_TOLD_EAGER = set()
+
+
+def capturable(device: torch.device) -> bool:
+    """Whether steps on ``device`` run as CUDA graphs (module docstring); an eager choice on a
+    card is logged once per backend."""
+    if torch.device(device).type != "cuda":
+        return False
+    import torch.distributed as dist
+
+    backend = dist.get_backend() if dist.is_available() and dist.is_initialized() else None
+    if backend in (None, "nccl"):
+        return True
+    if backend not in _TOLD_EAGER:
+        _TOLD_EAGER.add(backend)
+        log.info(f"the {backend} process group's collectives cannot join a CUDA graph: the "
+                 f"train step runs eagerly")
+    return False
+
+
+def _warm(fn: Callable[[], Any], device: torch.device) -> Any:
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side), no_host_sync():
+        out = fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    return out
+
+
+def warm_up(fn: Callable[[], Any], device: torch.device, name: str) -> Any:
+    """``fn()`` once eagerly on a side stream under ``no_host_sync``, as before a capture
+    (kernels built and loaded, library handles, plans and communicators made); returns its
+    result.  A failure raises and names the line of the port where it failed."""
+    try:
+        return _warm(fn, device)
+    except Exception as exc:
+        raise RuntimeError(f"{name}: CUDA graph warm-up failed at {_where(exc)}: "
+                           f"{type(exc).__name__}: {exc}") from exc
+
+
 def _where(exc: BaseException) -> str:
     """The innermost line of the port in an exception's traceback."""
     frames = [f for f in traceback.extract_tb(exc.__traceback__) if "vpho_tpu_torch" in f.filename
@@ -85,11 +128,7 @@ class Graph:
         self.name = name
         try:
             if warm:
-                side = torch.cuda.Stream(device)
-                side.wait_stream(torch.cuda.current_stream(device))
-                with torch.cuda.stream(side), no_host_sync():
-                    fn()
-                torch.cuda.current_stream(device).wait_stream(side)
+                _warm(fn, device)
             before = _tallies()
             t0 = time.perf_counter()
             self.graph = torch.cuda.CUDAGraph()
@@ -122,6 +161,12 @@ def _leaf_key(leaf):
     return ("value", leaf)
 
 
+def signature(*args) -> Tuple:
+    """The cache key of ``args``: their pytree structure and each leaf's key (module docstring)."""
+    leaves, spec = pytree.tree_flatten(args)
+    return spec, tuple(_leaf_key(x) for x in leaves)
+
+
 class CapturedStep:
     """``fn(*args)`` captured once per argument signature and replayed (module docstring)."""
 
@@ -132,7 +177,7 @@ class CapturedStep:
     @staticmethod
     def _flatten(args) -> Tuple[List[Any], Any, Tuple]:
         leaves, spec = pytree.tree_flatten(args)
-        return leaves, spec, (spec, tuple(_leaf_key(x) for x in leaves))
+        return leaves, spec, signature(*args)
 
     @staticmethod
     def _device(leaves) -> torch.device:

@@ -28,6 +28,7 @@ import torch
 
 from ..models.ycb import YCBRegistry
 from ..utils import transforms as T
+from ..utils.platform import device_index
 
 # the 8 bbox corners inside the 27-point lattice (i, j, k in {0, 2} of the 3x3x3 grid)
 BBOX8_IN_KPT27 = [0, 2, 6, 8, 18, 20, 24, 26]
@@ -154,9 +155,12 @@ def smce(registry: YCBRegistry, sym_R, sym_t, pd_rt, gt_rt, obj_ids) -> torch.Te
     return torch.linalg.norm(pd_b[:, None] - gt_b, dim=-1).mean(-1).amin(-1)
 
 
+_AABB_CORNERS = ((0, 1, 0, 0, 1, 0, 1, 1), (0, 0, 1, 0, 1, 1, 0, 1), (0, 0, 0, 1, 0, 1, 1, 1))
+
+
 def _aabb_corners(v: torch.Tensor) -> torch.Tensor:
     mm = torch.stack([v.amin(-2), v.amax(-2)], dim=-2)                   # (N, 2, 3)
-    ci = [[0, 1, 0, 0, 1, 0, 1, 1], [0, 0, 1, 0, 1, 1, 0, 1], [0, 0, 0, 1, 0, 1, 1, 1]]
+    ci = [device_index(c, v.device) for c in _AABB_CORNERS]
     return torch.stack([mm[:, ci[0], 0], mm[:, ci[1], 1], mm[:, ci[2], 2]], dim=-1)
 
 
@@ -165,7 +169,7 @@ def object_metrics(registry: YCBRegistry, pd_rt, gt_rt, obj_ids, cam_intr,
     """Per-sample object criteria.  pd_rt / gt_rt (N, 3, 4) camera frame; obj_ids (N,)
     0-based; cam_intr (N, 3, 3).  REP projects each sample with its own camera."""
     ids = obj_ids.long()
-    bbox8 = registry.kpt3d[ids][:, BBOX8_IN_KPT27]
+    bbox8 = registry.kpt3d[ids][:, device_index(BBOX8_IN_KPT27, ids.device)]
     vs = registry.verts_sampled[ids]
     vf = registry.verts_full[ids]
     vmask = registry.verts_full_mask[ids]

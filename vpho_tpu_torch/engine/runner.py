@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..configs.config import Config
-from ..data.fixtures import make_arrays
+from ..data.fixtures import host_context, make_arrays
 from ..parallel import mesh
 from ..utils import transforms as T
 from ..utils.platform import resolve_device
@@ -50,7 +50,14 @@ def _augment_eval_keys(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 def synthetic_stream(ctx, cfg: Config, n_batches: int, batch_size: int, seed: int = 0,
                      with_eval_keys: bool = False) -> Iterator[Dict[str, np.ndarray]]:
     """Host batches of the synthetic fixture, seeded ``seed + i``; on a data-parallel rank its
-    rows of each."""
+    rows of each.  The fixture's constants come to the host here, in the caller's thread
+    (``fixtures.host_context``)."""
+    return _synthetic_batches(host_context(ctx), cfg, n_batches, batch_size, seed,
+                              with_eval_keys)
+
+
+def _synthetic_batches(ctx, cfg: Config, n_batches: int, batch_size: int, seed: int,
+                       with_eval_keys: bool) -> Iterator[Dict[str, np.ndarray]]:
     for i in range(n_batches):
         batch = make_arrays(ctx, seed + i, batch_size, cfg.patch_size)
         if with_eval_keys:

@@ -2,7 +2,10 @@
 ``vpho_tpu/engine/tester.py``).
 
 ``add_batch`` computes the batch's criteria where its tensors live and keeps them there, so
-the eval loop waits on no metric; ``result()`` moves the rows to the host.  Reports follow
+the eval loop waits on no metric; ``result()`` moves the rows to the host.  The criteria are
+the JAX package's jitted programs: ``hand_metrics`` and ``object_metrics`` (the registry
+closed over) as ``CapturedStep``s, one per registry, shared by every tester, so on a card each
+is a CUDA graph per batch signature, replayed (``engine/graphs.py``).  Reports follow
 the reference: per YCB class without '051_large_clamp', 'average_instance' /
 'average_class', distances truncated to 0.01 mm and rates to 0.01 %; hand splits right /
 left / both plus per-joint MJE.
@@ -18,9 +21,24 @@ import torch
 from ..models.ycb import YCBRegistry
 from ..parallel import mesh
 from . import metrics as M
+from .graphs import CapturedStep
 
 DIST_KEYS = ("MCE", "MCE2", "SMCE", "OCE", "ADD", "ADDS", "CD")
 RATE_KEYS = ("ADD01d", "ADDS01d", "REP5")
+
+HAND_METRICS = CapturedStep(M.hand_metrics, "hand_metrics")
+_OBJECT_METRICS: Dict[int, tuple] = {}          # id(registry) -> (registry, its step)
+
+
+def object_metrics_step(registry: YCBRegistry) -> CapturedStep:
+    """``object_metrics`` over ``registry`` (closed over, as the JAX tester's jit is), made at
+    its first use and kept."""
+    held = _OBJECT_METRICS.get(id(registry))
+    if held is None or held[0] is not registry:
+        step = CapturedStep(lambda pd, gt, ids, K: M.object_metrics(registry, pd, gt, ids, K),
+                            "object_metrics")
+        held = _OBJECT_METRICS[id(registry)] = (registry, step)
+    return held[1]
 
 
 def _tensor(x, device=None) -> torch.Tensor:
@@ -60,8 +78,8 @@ class TesterHand(_Rows):
     def add_batch(self, gt_joint, pd_joint, gt_vert, pd_vert, is_right, valid=None):
         pd_joint = _tensor(pd_joint)
         dev = pd_joint.device
-        out = M.hand_metrics(_tensor(gt_joint, dev), pd_joint, _tensor(gt_vert, dev),
-                             _tensor(pd_vert, dev))
+        out = HAND_METRICS(_tensor(gt_joint, dev), pd_joint, _tensor(gt_vert, dev),
+                           _tensor(pd_vert, dev))
         out["is_right"] = _tensor(is_right, dev).bool()
         out["_valid"] = _valid_column(valid, out["is_right"].shape[0], dev)
         self._rows.append(out)
@@ -96,8 +114,8 @@ class TesterObject(_Rows):
     def add_batch(self, pd_rt, gt_rt, obj_ids, cam_intr, valid=None):
         dev = self.registry.kpt3d.device
         ids = _tensor(obj_ids, dev)
-        out = M.object_metrics(self.registry, _tensor(pd_rt, dev), _tensor(gt_rt, dev), ids,
-                               _tensor(cam_intr, dev))
+        out = object_metrics_step(self.registry)(_tensor(pd_rt, dev), _tensor(gt_rt, dev), ids,
+                                                 _tensor(cam_intr, dev))
         out["obj_id"] = ids
         out["_valid"] = _valid_column(valid, ids.shape[0], dev)
         self._rows.append(out)

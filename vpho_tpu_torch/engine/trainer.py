@@ -6,7 +6,9 @@ epoch's step count, and the ``--checkpoint`` state.
 
 Training: ``train_step`` is one forward (``forward_train``, the BN statistics move), backward
 and optimizer update; ``train_one_epoch`` runs it over a stream, its draws and dropout masks
-from a generator seeded 1000 + epoch.  The optimizer is the JAX trainer's optax chain
+from a generator seeded 1000 + epoch.  On a card (without a process group or on an nccl one)
+the step is ``make_train_step``'s CUDA graphs, replayed (``TrainStep``); the CPU and gloo
+groups run it op by op.  The optimizer is the JAX trainer's optax chain
 (``make_optimizer``): AdamW (decoupled decay 1e-4) or L2-coupled Adam (5e-4), the global-norm
 clip before the decay, ``MultiSteps`` accumulation, and the per-epoch ``exp`` / ``step`` or
 per-step ``cosine`` schedule (``make_lr_schedule``), whose step counts applied updates.
@@ -22,8 +24,9 @@ the metrics and the dump, ``_index`` (with ``path_of``) fills the dump's index a
 columns.  The ODE start state of batch i is ``x0_for(i, batch_size)`` when given, else a draw
 from a ``torch.Generator`` seeded 128 + i on the device.  The metrics stay on the device until
 the report; each batch makes one host transfer, for the prediction dump.  The predict and
-candidate paths go through ``make_predict_step`` and ``make_candidate_step``: on the card each is
-a CUDA graph per batch signature, replayed with one launch (``engine/graphs.py``).
+candidate paths go through ``make_predict_step`` and ``make_candidate_step``, the metrics
+through the testers' steps and the device preprocess through its own: on the card each is a
+CUDA graph per batch signature, replayed with one launch (``engine/graphs.py``).
 
 With ``--device_preprocess`` the loaders ship decoded frames and the batch's pixel work
 (crop, colour augmentation, erasing, heatmaps) runs on the device when the batch is staged
@@ -62,16 +65,19 @@ from ..data.device_pipeline import make_device_preprocess
 from ..data.prefetch import DeviceStager, prefetch
 from ..models import anchor as anchor_lib
 from ..models import vpho as V
+from ..diffusion.sampler import draw_score_noise
 from ..models.layers import DropoutMasks
 from ..parallel import mesh
 from ..utils import transforms as T
 from ..utils.platform import resolve_device
 from . import viz
+from . import graphs as G
 from .graphs import CapturedStep
 from .profiling import flops_of, param_count, trace
 from .tester import TesterHand, TesterObject
 
 X0Fn = Callable[[int, int], torch.Tensor]
+SCORE_DIMS = (("hand", 96), ("obj", 9))     # the score losses' pose widths: rot6d MANO, 9-d object
 _F32 = np.float32
 
 
@@ -117,9 +123,20 @@ class Optimizer:
     b1 0.9, b2 0.999, eps 1e-8, every parameter decayed.  With ``every`` > 1 it is
     ``optax.MultiSteps``: the running mean of ``every`` gradients is applied on every
     ``every``-th call and the calls between leave the parameters as they are.  ``count``
-    counts applied updates; it sets the bias corrections and the schedule's step."""
+    counts applied updates; it sets the bias corrections and the schedule's step.
+
+    A call is host bookkeeping, ``advance``, then device work that never waits for the device,
+    so a CUDA graph can capture it: ``accumulate`` (MultiSteps' running mean) and ``apply``.
+    The numbers that change from call to call, the accumulation divisor, the two bias
+    corrections and the learning rate, are computed on the host as before (``_corrections``, in
+    float32 as optax) and copied by ``advance`` into ``scalars``, a float32 tensor on the
+    parameters' device that the device work reads.  The clip's branch is taken on the device:
+    the gradients are divided by ``where(norm < clip, 1, norm)`` and multiplied by
+    ``where(norm < clip, 1, clip)``, which is optax's ``where(norm < clip, g, g / norm * clip)``
+    (a NaN norm divides) bit for bit."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
+    DIVISOR, BC1, BC2, LR = range(4)            # the entries of ``scalars``
 
     def __init__(self, params: Dict[str, torch.Tensor], kind: str,
                  schedule: Callable[[int], float], clip: float = -1.0, every: int = 1):
@@ -133,33 +150,49 @@ class Optimizer:
         self.acc = zeros() if every > 1 else None
         self.count = 0
         self.mini_step = 0
+        self.scalars = torch.ones(4, dtype=torch.float32, device=self.params[0].device)
+
+    def advance(self) -> bool:
+        """The host's part of a call: MultiSteps' position and, on a boundary, the update
+        count; the call's numbers into ``scalars`` (a copy that waits for nothing).  Returns
+        whether the call applies an update."""
+        divisor = float(self.mini_step + 1)
+        self.mini_step += 1
+        applies = self.mini_step >= self.every
+        if applies:
+            self.mini_step = 0
+            self.count += 1
+        bc1, bc2, lr = self._corrections() if applies else (1.0, 1.0, 0.0)
+        host = torch.tensor([divisor, bc1, bc2, lr], dtype=torch.float32)
+        if self.scalars.is_cuda:
+            host = host.pin_memory()     # the host allocator keeps it until the copy has run
+        self.scalars.copy_(host, non_blocking=True)
+        return applies
 
     @torch.no_grad()
-    def updates(self, grads: Sequence[torch.Tensor]) -> Optional[List[torch.Tensor]]:
-        """optax's ``update``: what to add to the parameters, or None between accumulation
-        boundaries."""
-        g = list(grads)
-        if self.acc is not None:
-            step = torch._foreach_sub(g, self.acc)
-            torch._foreach_div_(step, float(self.mini_step + 1))
-            torch._foreach_add_(self.acc, step)
-            self.mini_step += 1
-            if self.mini_step < self.every:
-                return None
-            g, self.acc, self.mini_step = self.acc, [torch.zeros_like(a) for a in self.acc], 0
+    def accumulate(self, grads: Sequence[torch.Tensor]) -> None:
+        """MultiSteps' running mean: acc += (g - acc) / (calls since the last update)."""
+        step = torch._foreach_sub(list(grads), self.acc)
+        torch._foreach_div_(step, self.scalars[self.DIVISOR])
+        torch._foreach_add_(self.acc, step)
+
+    @torch.no_grad()
+    def update(self, grads: Optional[Sequence[torch.Tensor]] = None) -> List[torch.Tensor]:
+        """optax's update of ``grads`` (the accumulated mean when None, which is then zeroed in
+        place for the next cycle), at the numbers ``advance`` put in ``scalars``."""
+        g = self.acc if grads is None else list(grads)
         if self.clip > 0:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g))).item()
-            if not norm < self.clip:
-                g = torch._foreach_div(g, norm)
-                torch._foreach_mul_(g, self.clip)
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            keep = norm < self.clip
+            g = torch._foreach_div(g, torch.where(keep, 1.0, norm))
+            torch._foreach_mul_(g, torch.where(keep, 1.0, self.clip))
         if self.kind == "adam":
             g = torch._foreach_add(g, self.params, alpha=5e-4)
         torch._foreach_mul_(self.mu, self.b1)
         torch._foreach_add_(self.mu, g, alpha=1.0 - self.b1)
         torch._foreach_mul_(self.nu, self.b2)
         torch._foreach_add_(self.nu, torch._foreach_mul(g, g), alpha=1.0 - self.b2)
-        self.count += 1
-        bc1, bc2, lr = self._corrections()
+        bc1, bc2, lr = (self.scalars[i] for i in (self.BC1, self.BC2, self.LR))
         denom = torch._foreach_div(self.nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
@@ -168,7 +201,25 @@ class Optimizer:
         if self.kind == "adamw":
             torch._foreach_add_(u, self.params, alpha=1e-4)
         torch._foreach_mul_(u, -lr)
+        if grads is None:
+            torch._foreach_zero_(self.acc)
         return u
+
+    @torch.no_grad()
+    def apply(self, grads: Optional[Sequence[torch.Tensor]] = None) -> None:
+        """The parameters moved by ``update(grads)``."""
+        torch._foreach_add_(self.params, self.update(grads))
+
+    @torch.no_grad()
+    def updates(self, grads: Sequence[torch.Tensor]) -> Optional[List[torch.Tensor]]:
+        """optax's ``update``: what to add to the parameters, or None between accumulation
+        boundaries."""
+        applies = self.advance()
+        if self.acc is not None:
+            self.accumulate(grads)
+        if not applies:
+            return None
+        return self.update(None if self.acc is not None else grads)
 
     def _corrections(self):
         """The bias corrections and learning rate of the update being applied (``count``
@@ -225,6 +276,113 @@ def make_candidate_step(model: V.VPHONet, ctx: V.VPHOContext) -> CapturedStep:
     aggregation, captured and replayed as ``make_predict_step``."""
     return CapturedStep(lambda batch, x0: V.forward_candidates(model, ctx, batch, x0=x0)[0],
                         "candidate_step")
+
+
+def _gradients(total: torch.Tensor, params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The gradients of ``total`` (zeros where a parameter has none), averaged over the ranks."""
+    grads = torch.autograd.grad(total, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    mesh.allreduce_mean_(grads)
+    return grads
+
+
+class TrainStep:
+    """The train step as CUDA graphs (the JAX trainer's ``make_train_step``, a jit of forward,
+    backward and the optax update): ``step(batch, generator)`` is one optimizer call on a device
+    batch, returning the weighted losses; what it does is ``Trainer.train_step``'s eager step.
+
+    Graph A is ``forward_train``, the gradients, their all-reduce over an nccl group, and then
+    the update (``every`` 1) or MultiSteps' accumulation; graph B, with accumulation, is the
+    update of the accumulated mean, replayed on the calls that apply one.  A's first call of a
+    batch signature is its warm-up: the eager step on a side stream (``graphs.warm_up``), its
+    dropout masks and score-loss draws taken from ``generator`` (or given); A is then captured
+    with those masks' shapes as static inputs (a second signature is logged: it costs a second
+    pool of the activations' size).  Before every later call the masks and draws are taken
+    from ``generator`` in the eager step's order (the masks in the order the warm-up drew
+    them, then the hand's and the object's draws), so a replay sees what an eager step would
+    see.  The optimizer's varying numbers are in ``Optimizer.scalars``, written by ``advance``
+    on the host before the replay; the MultiSteps branch stays on the host, which knows the
+    count."""
+
+    def __init__(self, model: V.VPHONet, ctx: V.VPHOContext, optimizer: "Optimizer"):
+        self.model, self.ctx, self.opt = model, ctx, optimizer
+        self.device = optimizer.params[0].device
+        self.graph = G.CapturedStep(self._device_step, "train_step")
+        self.apply_graph: Optional[G.Graph] = None
+        self.mask_shapes: Dict[Any, List[tuple]] = {}     # batch signature -> the masks drawn
+        self.keys: List[str] = []                         # the losses' names, in order
+
+    def _device_step(self, batch, masks, draws, generator=None) -> torch.Tensor:
+        """One call's device work (graph A): the weighted losses stacked.  ``masks`` and
+        ``draws`` None: drawn from ``generator`` (the warm-up), the masks kept in
+        ``self._drawn``."""
+        rows = mesh.batch_rows(int(batch["rgb"].shape[0]))
+        dropout = DropoutMasks(masks=masks, generator=generator, rows=rows)
+        total, losses = V.forward_train(self.model, self.ctx, batch, draws=draws,
+                                        dropout=dropout, generator=generator, rows=rows)
+        grads = _gradients(total, self.opt.params)
+        if self.opt.acc is not None:
+            self.opt.accumulate(grads)
+        else:
+            self.opt.apply(grads)
+        self.keys, self._drawn = list(losses), dropout.drawn
+        return torch.stack([v.detach().float() for v in losses.values()])
+
+    def draw_masks(self, shapes: Sequence[tuple], generator: torch.Generator):
+        """A call's dropout masks of ``shapes`` from ``generator``: the eager step draws them
+        first, in this order."""
+        keep = DropoutMasks().keep
+        return [DropoutMasks.draw(shape, keep, generator, self.device) for shape in shapes]
+
+    def draw_score(self, n: int, generator: torch.Generator) -> V.Draws:
+        """A call's score-loss draws for a batch of ``n`` (the global batch on a rank), drawn
+        after the masks, the hand's first."""
+        R, sde = self.ctx.cfg.repeat_num, self.ctx.sde
+        return {name: draw_score_noise(R * n, dim, sde, generator, self.device)
+                for name, dim in SCORE_DIMS}
+
+    def __call__(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
+                 masks: Optional[Sequence[torch.Tensor]] = None,
+                 draws: Optional[V.Draws] = None) -> Dict[str, torch.Tensor]:
+        """One call; ``masks`` (global, in call order) and ``draws`` (both losses') given in
+        place of ``generator``'s are copied into the graph's inputs as they are."""
+        n = (mesh.batch_rows(int(batch["rgb"].shape[0])) or (len(batch["rgb"]),))[-1]
+        key = G.signature(batch)
+        with torch.inference_mode(False), torch.enable_grad():
+            applies = self.opt.advance()
+            if key in self.mask_shapes:
+                if masks is None:
+                    masks = self.draw_masks(self.mask_shapes[key], generator)
+                if draws is None:
+                    draws = self.draw_score(n, generator)
+                losses = self.graph(batch, list(masks), draws)
+            else:
+                losses = G.warm_up(lambda: self._device_step(batch, masks, draws, generator),
+                                   self.device, "train_step")
+                static_masks = [m.clone() for m in self._drawn]
+                self.mask_shapes[key] = [tuple(m.shape) for m in static_masks]
+                if len(self.mask_shapes) > 1:
+                    G.log.warning(f"train_step: a batch signature of {n} rows after "
+                                  f"{len(self.mask_shapes) - 1} others: its capture takes "
+                                  f"another pool of the activations' size")
+                R = self.ctx.cfg.repeat_num
+                static_draws = draws or {name: (torch.ones(R * n, 1, device=self.device),
+                                                torch.zeros(R * n, dim, device=self.device))
+                                         for name, dim in SCORE_DIMS}
+                self.graph.capture(batch, static_masks, static_draws, warm=False)
+            if applies and self.opt.acc is not None:
+                if self.apply_graph is None:      # its warm-up applies this call's update
+                    self.apply_graph = G.Graph(self.opt.apply, self.device, "train_apply",
+                                               signature="the accumulated mean")
+                else:
+                    self.apply_graph.replay()
+        return dict(zip(self.keys, losses.unbind()))
+
+
+def make_train_step(model: V.VPHONet, ctx: V.VPHOContext, optimizer: "Optimizer") -> TrainStep:
+    """The train step (the JAX trainer's ``make_train_step``) over ``optimizer``'s parameters,
+    replayed as CUDA graphs (``TrainStep``)."""
+    return TrainStep(model, ctx, optimizer)
 
 
 def _split_state(model: torch.nn.Module) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -369,7 +527,8 @@ class Trainer:
             if m:
                 self.start_epoch = int(m.group(1))
         self.model: Optional[V.VPHONet] = None
-        self._steps: Dict[str, tuple] = {}              # kind -> (model, its captured step)
+        self._steps: Dict[str, tuple] = {}    # kind -> ((model, optimizer), its captured step)
+        self._preprocess: Dict[bool, Callable] = {}   # is_train -> the device preprocess
         self.optimizer: Optional[Optimizer] = None
         self.step = 0                                       # train_step calls so far
         self._clock = _BatchClock(self.device)
@@ -453,21 +612,34 @@ class Trainer:
     def train_step(self, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[V.Draws] = None,
-                   dropout: Optional[DropoutMasks] = None) -> Dict[str, torch.Tensor]:
+                   dropout: Optional[DropoutMasks] = None,
+                   eager: bool = False) -> Dict[str, torch.Tensor]:
         """One step on a device batch: ``forward_train`` (the BN statistics move), the
         gradients of the total loss, the optimizer.  Draws and dropout masks as
         ``forward_train`` takes them (at the global batch on a data-parallel rank, whose
         gradients are then averaged over the ranks).  Returns this rank's weighted losses,
-        detached."""
+        detached.
+
+        Where ``graphs.capturable`` says so (a card without a process group or on an nccl
+        group) the step is ``make_train_step``'s replayed graphs, timed as one span; ``eager``
+        (and the CPU and a gloo group) runs it op by op, timed in forward, backward and
+        optimizer spans."""
+        m0 = self._clock.mark()
+        if G.capturable(self.device) and not eager:
+            if dropout is not None and dropout.given is None:
+                raise ValueError("the captured train step takes dropout masks given as "
+                                 "DropoutMasks(masks=...), or draws them from generator")
+            losses = self._step("train")(batch, generator,
+                                         None if dropout is None else dropout.given, draws)
+            self._train_marks.append((m0, self._clock.mark()))
+            self.step += 1
+            return losses
         params = self.optimizer.params
         rows = mesh.batch_rows(int(batch["rgb"].shape[0]))
-        m0 = self._clock.mark()
         total, losses = V.forward_train(self.model, self.ctx, batch, draws=draws,
                                         dropout=dropout, generator=generator, rows=rows)
         m1 = self._clock.mark()
-        grads = torch.autograd.grad(total, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        mesh.allreduce_mean_(grads)
+        grads = _gradients(total, params)
         m2 = self._clock.mark()
         self.optimizer.step(grads)
         self._train_marks.append((m0, m1, m2, self._clock.mark()))
@@ -475,18 +647,20 @@ class Trainer:
         return {k: v.detach() for k, v in losses.items()}
 
     def train_timing(self) -> Dict[str, List[float]]:
-        """Seconds of forward, backward and optimizer per ``train_step`` since the last call
-        (device-stream spans on a GPU)."""
+        """Seconds per ``train_step`` since the last call (device-stream spans on a GPU): the
+        whole step, and forward, backward and optimizer of the eager steps."""
         marks, self._train_marks = self._train_marks, []
         sec = self._clock.seconds
-        return {"forward_s": [sec(a, b) for a, b, _, _ in marks],
-                "backward_s": [sec(b, c) for _, b, c, _ in marks],
-                "optimizer_s": [sec(c, d) for _, _, c, d in marks]}
+        eager = [m for m in marks if len(m) == 4]
+        return {"step_s": [sec(m[0], m[-1]) for m in marks],
+                "forward_s": [sec(a, b) for a, b, _, _ in eager],
+                "backward_s": [sec(b, c) for _, b, c, _ in eager],
+                "optimizer_s": [sec(c, d) for _, _, c, d in eager]}
 
     def train_one_epoch(self, epoch: int, batches: Iterable[Dict[str, Any]],
                         steps_per_epoch: int) -> Dict[str, torch.Tensor]:
         """``train_step`` over a host stream, logging the losses every ``--print_freq`` steps.
-        Returns the last step's losses; ``last_train`` keeps the epoch's time, per-step split
+        Returns the last step's losses; ``last_train`` keeps the epoch's time, per-step spans
         and last losses (as floats)."""
         gen = torch.Generator(device=self.device).manual_seed(1000 + epoch)
         noise_gen = torch.Generator(device=self.device).manual_seed(0x5A5A0000 + epoch)
@@ -506,10 +680,10 @@ class Trainer:
             torch.cuda.synchronize(self.device)
         seconds = time.perf_counter() - t0
         timing = self.train_timing()
-        split = {k: 1e3 * sum(v) / max(len(v), 1) for k, v in timing.items()}
+        split = {k: 1e3 * sum(v) / max(len(v), 1) for k, v in timing.items() if v}
         losses = dict(zip(last, mesh.mean_over_ranks(
             torch.stack([v.float() for v in last.values()])).cpu().tolist()))
-        self.last_train = {"seconds": seconds, "steps": len(timing["forward_s"]),
+        self.last_train = {"seconds": seconds, "steps": len(timing["step_s"]),
                            "losses": losses, **timing, "wait_s": waits,
                            "preprocess_s": [self._clock.seconds(*sp) if sp else 0.0
                                             for sp in pre_spans]}
@@ -537,7 +711,11 @@ class Trainer:
         preprocessed there.  Yields the batch, its valid mask and index, the seconds this
         thread waited for it, and the preprocess's clock marks (None without one)."""
         stager = DeviceStager(self.device)
-        pre = make_device_preprocess(self.cfg, is_train) if self.cfg.device_preprocess else None
+        pre = None
+        if self.cfg.device_preprocess:       # one per mode for the run: its graphs are kept
+            pre = self._preprocess.get(is_train)
+            if pre is None:
+                pre = self._preprocess[is_train] = make_device_preprocess(self.cfg, is_train)
 
         def stage(batch):
             batch = dict(batch)
@@ -567,14 +745,17 @@ class Trainer:
     def _eval_path_of(self):
         return self.eval_dataset.get_path if self.eval_dataset is not None else None
 
-    def _step(self, kind: str) -> CapturedStep:
-        """The model's predict or candidate step, made at first use (and anew for a new
-        model object)."""
-        model, step = self._steps.get(kind, (None, None))
-        if model is not self.model:
-            make = make_predict_step if kind == "predict" else make_candidate_step
-            step = make(self.model, self.ctx)
-            self._steps[kind] = (self.model, step)
+    def _step(self, kind: str):
+        """The model's predict, candidate or train step, made at first use (and anew for a new
+        model or optimizer object)."""
+        owner, step = self._steps.get(kind, ((None, None), None))
+        if owner[0] is not self.model or owner[1] is not self.optimizer:
+            if kind == "train":
+                step = make_train_step(self.model, self.ctx, self.optimizer)
+            else:
+                make = make_predict_step if kind == "predict" else make_candidate_step
+                step = make(self.model, self.ctx)
+            self._steps[kind] = ((self.model, self.optimizer), step)
         return step
 
     def _predict(self, i: int, batch, x0):

@@ -154,12 +154,16 @@ class DropoutMasks:
                 raise ValueError(f"dropout site {len(self.drawn) + 1}: mask {tuple(m.shape)}, "
                                  f"site {shape}")
         else:
-            gen = self.generator
-            m = torch.rand(shape, generator=gen,
-                           device=gen.device if gen is not None else device) < self.keep
-            m = m.to(device)
+            m = self.draw(shape, self.keep, self.generator, device)
         self.drawn.append(m)
         return m
+
+    @staticmethod
+    def draw(shape, keep: float, generator: Optional[torch.Generator], device) -> torch.Tensor:
+        """One keep mask of ``shape`` from ``generator`` (torch's default when None)."""
+        m = torch.rand(shape, generator=generator,
+                       device=generator.device if generator is not None else device) < keep
+        return m.to(device)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return torch.where(self.mask(x.shape, x.device), x / self.keep, torch.zeros_like(x))

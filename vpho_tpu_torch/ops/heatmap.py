@@ -34,8 +34,11 @@ def square_bbox_heatmap(pt2d: torch.Tensor, bbox: torch.Tensor, out_res: int, si
     a (...,) tensor: left hands' x moves by +1 heatmap pixel."""
     max_wh = (bbox[..., 2:] - bbox[..., :2]).amax(-1, keepdim=True)
     pt_hm = (pt2d - bbox[..., None, :2]) / max_wh[..., None, :] * (out_res - 1)
-    shift = 1.0 - torch.as_tensor(is_right, device=pt2d.device).to(pt2d.dtype)
-    x = pt_hm[..., 0] + (shift[..., None] if shift.dim() else shift)
+    if isinstance(is_right, (bool, np.bool_)):   # a host flag: no tensor copied at each call
+        shift = 0.0 if is_right else 1.0
+    else:
+        shift = (1.0 - torch.as_tensor(is_right, device=pt2d.device).to(pt2d.dtype))[..., None]
+    x = pt_hm[..., 0] + shift
     return gaussian_heatmap(torch.stack([x, pt_hm[..., 1]], -1), out_res, sigma)
 
 

@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .platform import device_index
+
 MANOLAYER_TO_MANOPTH = np.array(
     [0, 13, 14, 15, 16, 1, 2, 3, 17, 4, 5, 6, 18, 10, 11, 12, 19, 7, 8, 9, 20], np.int32
 )
@@ -62,13 +64,14 @@ def build_vert2joint(j_regressor: np.ndarray) -> np.ndarray:
 def joint_reorder(joint: torch.Tensor, dst_order: str) -> torch.Tensor:
     """(..., 21, 3) joints into ``manopth`` or ``manolayer`` order."""
     if dst_order == "manopth":
-        return joint[..., MANOLAYER_TO_MANOPTH, :]
+        return joint[..., device_index(MANOLAYER_TO_MANOPTH, joint.device), :]
     if dst_order == "manolayer":
-        return joint[..., MANOPTH_TO_MANOLAYER, :]
+        return joint[..., device_index(MANOPTH_TO_MANOLAYER, joint.device), :]
     raise ValueError(dst_order)
 
 
 def get_joint_aligned_with_ho3d(vert: torch.Tensor, joint: torch.Tensor) -> torch.Tensor:
     """Manolayer-order joints with the fingertips replaced by their mesh vertices."""
     j = joint_reorder(joint, "manolayer")
-    return torch.cat([j[..., :HO3D_TIPS_ID[0], :], vert[..., list(HO3D_TIPS_VERT_ID), :]], dim=-2)
+    tips = vert[..., device_index(HO3D_TIPS_VERT_ID, vert.device), :]
+    return torch.cat([j[..., :HO3D_TIPS_ID[0], :], tips], dim=-2)

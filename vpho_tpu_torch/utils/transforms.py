@@ -12,6 +12,8 @@ import functools
 
 import torch
 
+from .platform import copy_to_device, device_index
+
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` for small inner dimensions as a broadcast product and sum, so it stays plain
@@ -151,13 +153,13 @@ def _jacobi_tables(device: torch.device):
     tables = []
     with torch.inference_mode(False):
         for p1, q1, p2, q2 in _JACOBI_ROUNDS:
-            gather = torch.tensor([5 * p1, 5 * p2, 5 * q1, 5 * q2, 4 * p1 + q1, 4 * p2 + q2],
-                                  device=device)
+            gather = device_index([5 * p1, 5 * p2, 5 * q1, 5 * q2, 4 * p1 + q1, 4 * p2 + q2],
+                                  device)
             basis = torch.zeros(4, 16, dtype=torch.float64)
             for r, (p, q) in enumerate(((p1, q1), (p2, q2))):
                 basis[r, 5 * p] = basis[r, 5 * q] = 1.0
                 basis[2 + r, 4 * p + q], basis[2 + r, 4 * q + p] = 1.0, -1.0
-            tables.append((gather, basis.to(device)))
+            tables.append((gather, copy_to_device(basis, device)))
     return tuple(tables)
 
 
@@ -243,20 +245,35 @@ def inverse_project_uvd_to_xyz(uvd: torch.Tensor, cam_intrinsic: torch.Tensor) -
 
 
 def rigid_align(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """Procrustes-align point sets A (..., N, 3) onto B (..., N, 3) with scale (Umeyama).
-    The SVD's singular-vector signs are the library's own; the aligned points are not."""
+    """Procrustes-align point sets A (..., N, 3) onto B (..., N, 3) with scale (Umeyama): the
+    JAX package's SVD solution, solved in Horn's quaternion form so that nothing waits on the
+    device (``torch.linalg.svd`` checks its status on the host on CUDA).
+
+    With H = (A - mean A)^T (B - mean B) / N, the rotation R (B ~ c R A + t) is the unit
+    quaternion of the largest eigenvalue of Horn's symmetric 4x4 matrix of H, found by
+    ``dominant_eigvec_4x4_jacobi`` in float64; that eigenvalue is sigma1 + sigma2 +- sigma3 (the
+    singular values of H, the last negated when the best orthogonal map is a reflection), the
+    sum the scale c = sum / var(A) takes.  R is always a proper rotation, as the SVD form's
+    flip makes it.  Degenerate sets: for coplanar A (sigma3 = 0) the top eigenvalue stays
+    simple and R is the one proper rotation; for collinear A (sigma2 = sigma3 = 0) it is
+    double, and every quaternion of its plane turns A's line onto the same direction, so the
+    aligned points are the same whichever the solver returns."""
     n = A.shape[-2]
     centroid_A = A.mean(-2, keepdim=True)
     centroid_B = B.mean(-2, keepdim=True)
     H = matmul_f32((A - centroid_A).transpose(-1, -2), B - centroid_B) / n
-    U, s, Vt = torch.linalg.svd(H)
-    flip = torch.where(torch.linalg.det(matmul_f32(Vt.transpose(-1, -2), U.transpose(-1, -2)))
-                       < 0, -1.0, 1.0)
-    s = torch.cat([s[..., :2], s[..., 2:] * flip[..., None]], dim=-1)
-    Vt = torch.cat([Vt[..., :2, :], Vt[..., 2:, :] * flip[..., None, None]], dim=-2)
-    R = matmul_f32(Vt.transpose(-1, -2), U.transpose(-1, -2))
+    S = H.double()
+    s = lambda i, j: S[..., i, j]
+    rows = [[s(0, 0) + s(1, 1) + s(2, 2), s(1, 2) - s(2, 1), s(2, 0) - s(0, 2), s(0, 1) - s(1, 0)],
+            [s(1, 2) - s(2, 1), s(0, 0) - s(1, 1) - s(2, 2), s(0, 1) + s(1, 0), s(2, 0) + s(0, 2)],
+            [s(2, 0) - s(0, 2), s(0, 1) + s(1, 0), s(1, 1) - s(0, 0) - s(2, 2), s(1, 2) + s(2, 1)],
+            [s(0, 1) - s(1, 0), s(2, 0) + s(0, 2), s(1, 2) + s(2, 1), s(2, 2) - s(0, 0) - s(1, 1)]]
+    Nh = torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+    q = dominant_eigvec_4x4_jacobi(Nh)
+    sigma_sum = torch.einsum("...i,...ij,...j->...", q, Nh, q)
+    R = quaternion_to_matrix(q).to(A.dtype)
     varP = A.var(-2, unbiased=False).sum(-1)
-    c = s.sum(-1) / varP
+    c = sigma_sum.to(A.dtype) / varP
     t = centroid_B - c[..., None, None] * matmul_f32(centroid_A, R.transpose(-1, -2))
     return c[..., None, None] * matmul_f32(A, R.transpose(-1, -2)) + t
 
