@@ -2,9 +2,9 @@
 PyTorch versions on the card, one training step on the card, the device preprocess
 (``--device_preprocess``) on the card against itself on the CPU, and the captured steps
 (``engine/graphs.py``): a replay equal to the eager run bit for bit, the kernels' tallies
-counting replayed launches, a capture that would wait on the device refused; the train step's
-graphs against eager steps (also in an nccl group of one rank), the metric and preprocess
-graphs against their eager runs.
+counting replayed launches, the predict graph's stage marks read on every replay, a capture
+that would wait on the device refused; the train step's graphs against eager steps (also in an
+nccl group of one rank), the metric and preprocess graphs against their eager runs.
 
 There is no CPU mode for a CUDA kernel, so every test here needs an NVIDIA GPU and skips
 without one.  This file imports neither jax nor ``vpho_tpu``, so on a machine with a card and
@@ -309,6 +309,34 @@ def _replay_the_eager_run(V, ctx, model, batch, x0s, predict, candidates):
         got_c = candidates(batch, x0)
         for k, v in eager_c.items():
             assert torch.equal(got_c[k], v), k
+
+
+def test_predict_graph_times_its_stages_on_every_replay(cuda_device):
+    """The predict graph's stage marks are event nodes, recorded again by every replay: after
+    each call the launch wait, trunk, ODE and aggregation read positive, and together no more
+    than events recorded around the call.  The eager warm-up takes the same marks."""
+    from vpho_tpu_torch.engine import profiling as P
+    from vpho_tpu_torch.engine.trainer import make_predict_step
+
+    V, ctx, model, batch, x0s = _small_predict(cuda_device, "bfloat16")
+    step = make_predict_step(model, ctx)
+    keys = [key for key, _, _ in P.STAGES]
+    step.eager(batch, x0s[0])
+    torch.cuda.synchronize()
+    assert list(P.stage_seconds(step.marks)) == keys
+    step.capture(batch, x0s[0], warm=False)
+    (_, graph), = step.graphs.values()
+    assert list(graph.marks) == ["start", "trunk", "ode", "end"]
+    clock = P.Clock(cuda_device)
+    for i in range(4):
+        before = clock.mark()
+        step(batch, x0s[i % 2])
+        after = clock.mark()
+        torch.cuda.synchronize()
+        got = P.stage_seconds(step.marks)
+        assert list(got) == keys
+        assert all(v > 0.0 for v in got.values()), got
+        assert sum(got.values()) <= clock.seconds(before, after), got
 
 
 def test_kernel_tallies_count_replayed_launches(cuda_device):

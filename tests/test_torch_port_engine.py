@@ -361,10 +361,6 @@ def test_profiling_helpers(tmp_path):
     assert torch.equal(out, a @ b)
     assert cost == {"flops": 2.0 * 8 * 16 * 4, "kernel_flops": 0.0}
     assert TP.param_count(torch.nn.Linear(3, 2)) == 8
-    timing = {}
-    with TP.device_timer("x", timing, device="cpu"):
-        torch.ones(3).sum()
-    assert timing["x"] >= 0.0
     with TP.trace(str(tmp_path / "trace")) as tr:
         a @ b
     assert os.path.getsize(tr["path"]) > 0 and "aten::mm" in open(tr["path"]).read()

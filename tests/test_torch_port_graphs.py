@@ -354,6 +354,7 @@ class _ReplayOnCPU:
     runs it again on the same (static) tensors, into the same output tensors."""
 
     captures = 0
+    marks = {}                              # a CPU "capture" records no stage marks
 
     def __init__(self, fn, device, name, warm=True, signature=""):
         type(self).captures += 1

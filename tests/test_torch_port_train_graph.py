@@ -262,6 +262,7 @@ class _CheckedReplayOnCPU:
     a real capture runs nothing); every "replay" runs ``fn`` and must record the same."""
 
     state = []                              # the tensors a call moves, set by the test
+    marks = {}                              # a CPU "capture" records no stage marks
 
     def __init__(self, fn, device, name, warm=True, signature=""):
         if warm:

@@ -48,7 +48,7 @@ def test_one_epoch_writes_checkpoint_and_final_model(first):
     assert trainer.last_train["steps"] == 8 and len(trainer.last_train["losses"]) == 14
     assert all(np.isfinite(v) for v in trainer.last_train["losses"].values())
     log = open(os.path.join(trainer.save_dir, "info.log")).read()
-    assert log.count("predict graph") == 2          # --start_with_eval, then the sub-eval
+    assert log.count("hand/regression:") == 2       # --start_with_eval, then the sub-eval
     assert "[0004/8] diff_hand:" in log and "Epoch 0 done" in log
     payload = torch.load(os.path.join(trainer.save_dir, "checkpoint", "epoch_1.state"),
                          weights_only=True)

@@ -43,12 +43,8 @@ def step_and_eval(inputs, out_dir: str):
     trainer = TT.Trainer(cfg, "cpu")
     trainer.init_state(steps_per_epoch=1)
     trainer.model.load_state_dict(inputs["init_sd"])
-    count_flops, TT.flops_of = TT.flops_of, lambda run: (run(), {"flops": 0, "kernel_flops": 0})
-    try:                                # the graph's operation count: seconds, and only logged
-        out = trainer.evaluate(synthetic_stream(trainer.ctx, cfg, 1, 5, seed=9999,
-                                                with_eval_keys=True))
-    finally:
-        TT.flops_of = count_flops
+    out = trainer.evaluate(synthetic_stream(trainer.ctx, cfg, 1, 5, seed=9999,
+                                            with_eval_keys=True))
     pkl = trainer.dump_predictions(out["collector_res"])
     batch = inputs["batch"]
     n = len(next(iter(batch.values()))) // mesh.world_size()

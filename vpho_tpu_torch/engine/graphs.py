@@ -28,6 +28,15 @@ replayed with one host launch:
   * ``capturable(device)`` is the one place that decides whether a step on ``device`` is
     captured: a card without a process group or on an nccl group is; the CPU and a gloo group
     (whose collectives run through the host and cannot join a graph) run eagerly.
+  * Stage marks (``profiling.stage_mark``): a capture turns each mark of ``fn`` into an
+    event-record node, kept in ``Graph.marks`` and recorded again by every replay.  A step
+    whose graph has marks takes a ``launch`` mark on the stream just before the replay;
+    ``CapturedStep.marks`` holds the latest call's marks, read once the device has passed
+    them (``profiling.stage_seconds``).  A step run op by op (``eager``: the CPU's call, a
+    card's warm-up) takes the same marks on its device's clock.
+  * Host spans (``profiling.span``, seen only while a profiler records): ``<name>.copy_in``,
+    ``<name>.replay`` and ``<name>.clone_out`` of a replayed call, ``<name>.eager`` of an
+    eager one.
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ from torch.utils import _pytree as pytree
 
 from ..ops import bank_mlp as K1
 from ..ops import min_dist as K2
+from . import profiling as P
 
 COUNTERS = ((K1, "launches"), (K1, "operations"), (K2, "launches"), (K2, "operations"))
 log = logging.getLogger("vpho_torch")
@@ -121,11 +131,13 @@ class Graph:
     """One CUDA graph of ``fn()``: ``out`` holds its outputs, ``replay()`` runs it again.
 
     ``fn`` takes no arguments and reads and writes tensors that stay where they are.  With
-    ``warm`` (the default) it runs once eagerly on a side stream before the capture."""
+    ``warm`` (the default) it runs once eagerly on a side stream before the capture.  ``marks``
+    holds the events of its stage marks, recorded by every replay."""
 
     def __init__(self, fn: Callable[[], Any], device: torch.device, name: str,
                  warm: bool = True, signature: str = ""):
         self.name = name
+        self.replay_span = f"{name}.replay"
         try:
             if warm:
                 _warm(fn, device)
@@ -136,7 +148,7 @@ class Graph:
                 # thread_local: the loader's staging thread may pin memory meanwhile
                 with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
                     reserved = torch.cuda.memory_reserved(device)   # after the cache is emptied
-                    with no_host_sync():
+                    with no_host_sync(), P.marking(P.Clock(device, external=True)) as marks:
                         self.out = fn()
                     self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
             finally:
@@ -146,12 +158,14 @@ class Graph:
             raise RuntimeError(f"{name}: CUDA graph capture failed at {_where(exc)}: "
                                f"{type(exc).__name__}: {exc}") from exc
         self.moves = [a - b for a, b in zip(after, before)]
+        self.marks = marks
         self.seconds = time.perf_counter() - t0
         log.info(f"captured {name} [{signature}] in {self.seconds:.2f} s, "
                  f"pool {self.pool_bytes / 1e9:.3f} GB")
 
     def replay(self) -> None:
-        self.graph.replay()
+        with P.span(self.replay_span):
+            self.graph.replay()
         _set_tallies([v + d for v, d in zip(_tallies(), self.moves)])
 
 
@@ -173,6 +187,8 @@ class CapturedStep:
     def __init__(self, fn: Callable, name: str):
         self.fn, self.name = fn, name
         self.graphs: Dict[Tuple, Tuple[List[Any], Graph]] = {}
+        self.marks: Dict[str, Any] = {}          # the latest call's stage marks
+        self.spans = {k: f"{name}.{k}" for k in ("copy_in", "clone_out", "eager")}
 
     @staticmethod
     def _flatten(args) -> Tuple[List[Any], Any, Tuple]:
@@ -202,17 +218,32 @@ class CapturedStep:
         graph = Graph(lambda: self.fn(*replica), dev, self.name, warm=warm, signature=signature)
         self.graphs[key] = (static, graph)
 
+    def eager(self, *args):
+        """``fn(*args)`` op by op, its stage marks (after a ``launch`` mark) on the clock of
+        the arguments' device."""
+        clock = P.Clock(self._device(pytree.tree_leaves(args)))
+        with P.span(self.spans["eager"]), P.marking(clock) as marks:
+            marks["launch"] = clock.mark()
+            out = self.fn(*args)
+        self.marks = marks
+        return out
+
     def __call__(self, *args):
         leaves, _, key = self._flatten(args)
         if self._device(leaves).type != "cuda":
-            return self.fn(*args)
+            return self.eager(*args)
         if key not in self.graphs:
             self.capture(*args)
         static, graph = self.graphs[key]
-        with torch.no_grad():
+        with P.span(self.spans["copy_in"]), torch.no_grad():
             for s, x in zip(static, leaves):
                 if isinstance(x, torch.Tensor):
                     s.copy_(x)
+        if graph.marks:
+            launch = torch.cuda.Event(enable_timing=True)
+            launch.record()
+            self.marks = {"launch": launch, **graph.marks}
         graph.replay()
-        return pytree.tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
-                               graph.out)
+        with P.span(self.spans["clone_out"]):
+            return pytree.tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+                                   graph.out)

@@ -49,6 +49,7 @@ The JAX package's orbax ``epoch_N.state`` directories are read through ``orbax_t
 from __future__ import annotations
 
 import datetime
+import itertools
 import logging
 import os
 import pickle
@@ -73,7 +74,7 @@ from ..utils.platform import resolve_device
 from . import viz
 from . import graphs as G
 from .graphs import CapturedStep
-from .profiling import flops_of, param_count, trace
+from .profiling import STAGES, Clock, param_count, span, stage_mark, stage_seconds, trace
 from .tester import TesterHand, TesterObject
 
 X0Fn = Callable[[int, int], torch.Tensor]
@@ -265,9 +266,16 @@ def make_predict_step(model: V.VPHONet, ctx: V.VPHOContext) -> CapturedStep:
     """The predict step (the JAX trainer's ``make_predict_step``): ``step(batch, x0)`` is
     ``forward_predict`` with the ODE start state as an input, captured as a CUDA graph once per
     batch signature on the card and replayed (``engine/graphs.py``), called eagerly on the CPU.
-    Its outputs are the caller's: a later call does not overwrite them."""
-    return CapturedStep(lambda batch, x0: V.forward_predict(model, ctx, batch, x0=x0),
-                        "predict_step")
+    Its outputs are the caller's: a later call does not overwrite them.  Its stage marks,
+    ``start`` and ``end`` around ``forward_predict`` and ``trunk`` and ``ode`` inside it, time
+    the trunk, the ODE and the aggregation in the graph (``profiling.STAGES``)."""
+    def predict(batch, x0):
+        stage_mark("start")
+        pd = V.forward_predict(model, ctx, batch, x0=x0)
+        stage_mark("end")
+        return pd
+
+    return CapturedStep(predict, "predict_step")
 
 
 def make_candidate_step(model: V.VPHONet, ctx: V.VPHOContext) -> CapturedStep:
@@ -351,11 +359,13 @@ class TrainStep:
         with torch.inference_mode(False), torch.enable_grad():
             applies = self.opt.advance()
             if key in self.mask_shapes:
-                if masks is None:
-                    masks = self.draw_masks(self.mask_shapes[key], generator)
-                if draws is None:
-                    draws = self.draw_score(n, generator)
-                losses = self.graph(batch, list(masks), draws)
+                with span("train.draws"):
+                    if masks is None:
+                        masks = self.draw_masks(self.mask_shapes[key], generator)
+                    if draws is None:
+                        draws = self.draw_score(n, generator)
+                with span("train.replay"):
+                    losses = self.graph(batch, list(masks), draws)
             else:
                 losses = G.warm_up(lambda: self._device_step(batch, masks, draws, generator),
                                    self.device, "train_step")
@@ -469,25 +479,6 @@ def format_table(table: Dict[str, Dict[str, Any]]) -> str:
     return "\n".join("  ".join(c.rjust(w) for c, w in zip(r, widths)) for r in cells)
 
 
-class _BatchClock:
-    """Per-batch spans without host waits: CUDA events on the stream (device timeline) on a
-    GPU, the host clock on the CPU."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-
-    def mark(self):
-        if self.cuda:
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            return e
-        return time.perf_counter()
-
-    @staticmethod
-    def seconds(a, b) -> float:
-        return a.elapsed_time(b) / 1e3 if isinstance(a, torch.cuda.Event) else b - a
-
-
 class _Staged(NamedTuple):
     batch: Dict[str, torch.Tensor]
     valid: np.ndarray
@@ -531,7 +522,7 @@ class Trainer:
         self._preprocess: Dict[bool, Callable] = {}   # is_train -> the device preprocess
         self.optimizer: Optional[Optimizer] = None
         self.step = 0                                       # train_step calls so far
-        self._clock = _BatchClock(self.device)
+        self._clock = Clock(self.device)
         self._train_marks: List[tuple] = []
         self.last_train: Optional[Dict[str, Any]] = None   # the latest epoch's timing
         self._trace_done = False
@@ -662,6 +653,11 @@ class Trainer:
         """``train_step`` over a host stream, logging the losses every ``--print_freq`` steps.
         Returns the last step's losses; ``last_train`` keeps the epoch's time, per-step spans
         and last losses (as floats)."""
+        with span("train.epoch", epoch):
+            return self._train_one_epoch(epoch, batches, steps_per_epoch)
+
+    def _train_one_epoch(self, epoch: int, batches: Iterable[Dict[str, Any]],
+                         steps_per_epoch: int) -> Dict[str, torch.Tensor]:
         gen = torch.Generator(device=self.device).manual_seed(1000 + epoch)
         noise_gen = torch.Generator(device=self.device).manual_seed(0x5A5A0000 + epoch)
         t0 = time.perf_counter()
@@ -672,10 +668,11 @@ class Trainer:
             waits.append(st.wait_s)
             last = self.train_step(st.batch, generator=gen)
             if i % max(self.cfg.print_freq, 1) == 0:
-                vals = mesh.mean_over_ranks(torch.stack([v.float() for v in last.values()])
-                                            ).cpu().tolist()
-                self.logger.info(f"[{i:04d}/{steps_per_epoch}] " + " ".join(
-                    f"{k.replace('_loss', '')}:{v:.2e}" for k, v in zip(last, vals)))
+                with span("train.log", i):
+                    vals = mesh.mean_over_ranks(torch.stack([v.float() for v in last.values()])
+                                                ).cpu().tolist()
+                    self.logger.info(f"[{i:04d}/{steps_per_epoch}] " + " ".join(
+                        f"{k.replace('_loss', '')}:{v:.2e}" for k, v in zip(last, vals)))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         seconds = time.perf_counter() - t0
@@ -728,19 +725,21 @@ class Trainer:
             return stager.stage(batch), valid, index, global_n
 
         it = iter(prefetch(batches, stage))
-        while True:
-            t0 = time.perf_counter()
-            try:
-                staged, valid, index, global_n = next(it)
-            except StopIteration:
-                return
-            wait_s = time.perf_counter() - t0
-            batch, span = stager.ready(staged), None
+        for i in itertools.count():
+            with span("stage_wait", i):
+                t0 = time.perf_counter()
+                try:
+                    staged, valid, index, global_n = next(it)
+                except StopIteration:
+                    return
+                wait_s = time.perf_counter() - t0
+                batch, marks = stager.ready(staged), None
             if pre is not None:
-                m0 = self._clock.mark()
-                batch = pre(batch, generator=generator)
-                span = (m0, self._clock.mark())
-            yield _Staged(batch, valid, index, global_n, wait_s, span)
+                with span("preprocess", i):
+                    m0 = self._clock.mark()
+                    batch = pre(batch, generator=generator)
+                    marks = (m0, self._clock.mark())
+            yield _Staged(batch, valid, index, global_n, wait_s, marks)
 
     def _eval_path_of(self):
         return self.eval_dataset.get_path if self.eval_dataset is not None else None
@@ -759,16 +758,13 @@ class Trainer:
         return step
 
     def _predict(self, i: int, batch, x0):
-        """The predict step.  Batch 0 runs ``forward_predict`` eagerly to count the graph's
-        operations, which is also the capture's warm-up, then captures the step; batch 1 is
-        traced when ``--trace_dir`` is set (a replay, on the card)."""
+        """The predict step.  Batch 0 runs it eagerly, the capture's warm-up, then captures the
+        step (once per signature); batch 1 is traced when ``--trace_dir`` is set (a replay, on
+        the card).  The step's ``marks`` then hold the call's stage marks."""
         step = self._step("predict")
         run = lambda: step(batch, x0)
         if i == 0:
-            pd, cost = flops_of(lambda: V.forward_predict(self.model, self.ctx, batch, x0=x0))
-            self.logger.info(f"predict graph: {cost['flops'] / 1e9:.2f} GFLOPs "
-                             f"({cost['kernel_flops'] / 1e9:.2f} in the CUDA kernels), "
-                             f"{param_count(self.model) / 1e6:.2f}M params")
+            pd = step.eager(batch, x0)
             step.capture(batch, x0, warm=False)
             return pd
         if i == 1 and self.cfg.trace_dir and not self._trace_done and mesh.is_main():
@@ -796,51 +792,60 @@ class Trainer:
         testers_obj = {k: TesterObject(self.ctx.registry)
                        for k in ("one_candidate", "mean_candidate_pose")}
         collector_res = []
-        clock = _BatchClock(self.device)
+        clock = Clock(self.device)
         timing = {"wait_s": [], "preprocess_s": [], "predict_s": [], "metrics_s": [],
-                  "batch_s": [], "frames": []}
+                  "batch_s": [], "frames": [], **{key: [] for key, _, _ in STAGES}}
         t_prev = time.perf_counter()
         with torch.inference_mode():
             for i, st in enumerate(self._staged(batches)):
-                b, valid, index = st.batch, st.valid, st.index
-                x0 = self._x0(i, st, x0_for)
-                m0 = clock.mark()
-                pd = self._predict(i, b, x0)
-                m1 = clock.mark()
-                root, is_right = b["root_joint"], b["is_right"].bool()
-                hv = lambda v: postprocess_hand_vert(v, root, is_right)
-                pd_vert_agg, pd_joint_agg = hv(pd["agg_hand_vert"]), hv(pd["agg_hand_joint"])
-                pd_rt_agg = postprocess_obj_rt(pd["agg_obj_6d"], root)
-                hand_preds = {
-                    "regression": (hv(pd["reg_hand_joint"]), hv(pd["reg_hand_vert"])),
-                    "one_candidate": (hv(pd["diff_final_hand_joint"][:, 0]),
-                                      hv(pd["diff_final_hand_vert"][:, 0])),
-                    "agg_candidate": (pd_joint_agg, pd_vert_agg)}
-                for key, (pj, pv) in hand_preds.items():
-                    testers_hand[key].add_batch(b["gt_joint"], pj, b["gt_hand_vert"], pv,
-                                                is_right, valid)
-                obj_preds = {
-                    "one_candidate": postprocess_obj_rt(pd["diff_final_obj_6d"][:, 0], root),
-                    "mean_candidate_pose": pd_rt_agg}
-                for key, rt in obj_preds.items():
-                    testers_obj[key].add_batch(rt, b["gt_obj_rt"], b["obj_id"], b["cam_intr"],
-                                               valid)
-                m2 = clock.mark()
-                row = _host({"pd_obj_rt": pd_rt_agg, "pd_hand_vert": pd_vert_agg,
-                             "pd_hand_joint": pd_joint_agg, "gt_obj_rt": b["gt_obj_rt"],
-                             "obj_id": b["obj_id"].int()})
-                row["pd_hand_vert"] = row["pd_hand_vert"].astype(np.float16)
-                collector_res.append({**row, "_valid": valid, "_index": index})
-                if self.cfg.viz_freq > 0 and i % self.cfg.viz_freq == 0 and mesh.is_main():
-                    self._viz(i, b, pd, pd_vert_agg, pd_rt_agg)
-                t_now = time.perf_counter()
-                timing["wait_s"].append(st.wait_s)
-                timing["preprocess_s"].append(clock.seconds(*st.pre_span) if st.pre_span else 0.0)
-                timing["predict_s"].append(clock.seconds(m0, m1))
-                timing["metrics_s"].append(clock.seconds(m1, m2))
-                timing["batch_s"].append(t_now - t_prev)
-                timing["frames"].append(int(valid.sum()))
-                t_prev = t_now
+                with span("batch", i):
+                    b, valid, index = st.batch, st.valid, st.index
+                    with span("x0", i):
+                        x0 = self._x0(i, st, x0_for)
+                    m0 = clock.mark()
+                    pd = self._predict(i, b, x0)
+                    m1 = clock.mark()
+                    with span("postprocess", i):
+                        root, is_right = b["root_joint"], b["is_right"].bool()
+                        hv = lambda v: postprocess_hand_vert(v, root, is_right)
+                        pd_vert_agg = hv(pd["agg_hand_vert"])
+                        pd_joint_agg = hv(pd["agg_hand_joint"])
+                        pd_rt_agg = postprocess_obj_rt(pd["agg_obj_6d"], root)
+                        hand_preds = {
+                            "regression": (hv(pd["reg_hand_joint"]), hv(pd["reg_hand_vert"])),
+                            "one_candidate": (hv(pd["diff_final_hand_joint"][:, 0]),
+                                              hv(pd["diff_final_hand_vert"][:, 0])),
+                            "agg_candidate": (pd_joint_agg, pd_vert_agg)}
+                        rt_one = postprocess_obj_rt(pd["diff_final_obj_6d"][:, 0], root)
+                        obj_preds = {"one_candidate": rt_one, "mean_candidate_pose": pd_rt_agg}
+                    with span("testers", i):
+                        for key, (pj, pv) in hand_preds.items():
+                            testers_hand[key].add_batch(b["gt_joint"], pj, b["gt_hand_vert"], pv,
+                                                        is_right, valid)
+                        for key, rt in obj_preds.items():
+                            testers_obj[key].add_batch(rt, b["gt_obj_rt"], b["obj_id"],
+                                                       b["cam_intr"], valid)
+                    m2 = clock.mark()
+                    with span("rows_to_host", i):
+                        row = _host({"pd_obj_rt": pd_rt_agg, "pd_hand_vert": pd_vert_agg,
+                                     "pd_hand_joint": pd_joint_agg, "gt_obj_rt": b["gt_obj_rt"],
+                                     "obj_id": b["obj_id"].int()})
+                        row["pd_hand_vert"] = row["pd_hand_vert"].astype(np.float16)
+                        collector_res.append({**row, "_valid": valid, "_index": index})
+                    if self.cfg.viz_freq > 0 and i % self.cfg.viz_freq == 0 and mesh.is_main():
+                        with span("viz", i):
+                            self._viz(i, b, pd, pd_vert_agg, pd_rt_agg)
+                    t_now = time.perf_counter()
+                    timing["wait_s"].append(st.wait_s)
+                    timing["preprocess_s"].append(
+                        clock.seconds(*st.pre_span) if st.pre_span else 0.0)
+                    timing["predict_s"].append(clock.seconds(m0, m1))
+                    timing["metrics_s"].append(clock.seconds(m1, m2))
+                    for key, sec in stage_seconds(self._step("predict").marks).items():
+                        timing[key].append(sec)
+                    timing["batch_s"].append(t_now - t_prev)
+                    timing["frames"].append(int(valid.sum()))
+                    t_prev = t_now
 
         if self.cfg.trace_dir and not self._trace_done:
             self.logger.warning("--trace_dir set but no trace captured: the capture runs on "

@@ -6,7 +6,8 @@
   * ``VPHOContext`` carries the constants: MANO, the YCB registry, the anchor tables, the SDE,
     the config and the device.
   * ``forward_predict`` = ``forward_candidates`` (trunk -> one 105-d probability-flow ODE over
-    B*S hypotheses -> MANO FK) + ``hoi_aggregate``.
+    B*S hypotheses -> MANO FK) + ``hoi_aggregate``.  ``forward_candidates`` takes the stage
+    marks ``trunk`` and ``ode`` (``engine/profiling.py::stage_mark``) after those stages.
   * ``forward_train``: the trunk in train mode and the weighted loss dict of one training step
     (score matching of both denoisers, heatmaps, MANO regression, physics).
 
@@ -24,6 +25,7 @@ import torch.nn as nn
 
 from ..diffusion.sampler import ode_sampler, score_matching_loss
 from ..diffusion.sde import SDE, init_sde
+from ..engine.profiling import stage_mark
 from ..ops.image import resample_rectilinear, resize_bilinear, roi_align
 from ..utils import transforms as T
 from ..utils.hand import get_joint_aligned_with_ho3d
@@ -350,6 +352,7 @@ def forward_candidates(model: VPHONet, ctx: VPHOContext, batch: Dict[str, torch.
     pd_dt["hand_heatmap"] = out["pd_hm_hand"]
     pd_dt["obj_heatmap"] = out["pd_hm_obj"]
     pd_dt["force_local"] = out["pd_phy"]["force_local"]
+    stage_mark("trunk")
 
     score_h = _score_fn(model.denoiser_hand, ctx.sde, out["encoding_hand"])
     score_o = _score_fn(model.denoiser_obj, ctx.sde, out["encoding_obj"])
@@ -371,6 +374,7 @@ def forward_candidates(model: VPHONet, ctx: VPHOContext, batch: Dict[str, torch.
     pd_dt["diff_final_hand_vert"], pd_dt["diff_final_hand_joint"] = hand_verts_meters(
         ctx.mano, hand_mano[..., :48], hand_mano[..., 48:])
     pd_dt["diff_final_obj_6d"] = final[:, 96:].reshape(B, S, 9)
+    stage_mark("ode")
     return pd_dt, out
 
 
