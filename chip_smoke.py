@@ -110,6 +110,7 @@ CUDA device and the checkout it sits in; without either it fails.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -129,6 +130,16 @@ def say(**fields):
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def free_memory():
+    """Return what deleted trainers held to the card: a trainer's ``TrainStep`` and its
+    ``CapturedStep`` refer to each other, so their graphs' pools are freed by the cycle
+    collector, not when the last name is deleted."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def nbytes(*ts):
@@ -406,7 +417,7 @@ def ddp_rank(dev, work):
     if mesh.rank() == 0:
         out.update(grads=grads, stats=stats)
     del tr
-    torch.cuda.empty_cache()
+    free_memory()
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     ecfg = get_config(inp["eval_argv"])
@@ -441,7 +452,7 @@ def ddp_phase(dev, card, eval_argv, kernels):
     from vpho_tpu_torch.engine.trainer import Trainer
     from vpho_tpu_torch.parallel import mesh
 
-    torch.cuda.empty_cache()
+    free_memory()
     ddp_dir = os.path.join("output", "chip_smoke_ddp")
     ddp_argv = ["--mode", "train", "--batch_size", "16", "--patch_size", "256",
                 "--output_dir", ddp_dir]        # the training defaults: f32, repeat_num 20
@@ -476,7 +487,7 @@ def ddp_phase(dev, card, eval_argv, kernels):
                                                  torch.full_like(ddp_batch["rgb"], float("inf"))))
     noise = bar_used(ref, train_step_record(tr_ref, nudged, ddp_draws, ddp_masks, None))
     del tr_ref
-    torch.cuda.empty_cache()
+    free_memory()
 
     def held(run, what):
         used = bar_used(ref, run)
@@ -495,7 +506,7 @@ def ddp_phase(dev, card, eval_argv, kernels):
         nccl_used = held(train_step_record(tr_a, ddp_batch, ddp_draws, ddp_masks,
                                            mesh.batch_rows(16)), "ddp nccl world 1")
         del tr_a
-        torch.cuda.empty_cache()
+        free_memory()
         tr_g = Trainer(dcfg, dev)
         tr_g.init_state(8)
         tr_g.model.load_state_dict(ddp_sd)
@@ -505,7 +516,7 @@ def ddp_phase(dev, card, eval_argv, kernels):
         del tr_g
     finally:
         mesh.shutdown()
-    torch.cuda.empty_cache()
+    free_memory()
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
 
@@ -1159,7 +1170,7 @@ def main() -> int:
     check((tcfg.compute_dtype, tcfg.optimizer, tcfg.scheduler, tcfg.base_learning_rate,
            tcfg.gamma) == ("float32", "adamw", "exp", 2e-4, 0.96), "training defaults changed")
     del model, ctx, cand, trunk_out, held, recorded, pd, pd_a, agg_out, predict_step, trainer
-    torch.cuda.empty_cache()
+    free_memory()
     trainer_t = Trainer(tcfg, dev)
     trainer_t.init_state(8)
     tbatch = fixtures.make_batch(trainer_t.ctx, seed=21, batch_size=64, patch_size=256)
@@ -1237,7 +1248,7 @@ def main() -> int:
     for name in kernels:
         kernels[name]["launches_by_path"]["train_step_replayed"] = 0
     del trainer_t, tbatch, losses, tstep, tgraph, replay_losses
-    torch.cuda.empty_cache()
+    free_memory()
 
     # ---- 10. train_f32: one small train step on the card against the port on the CPU -----
     # Same weights, the same score-loss draws and dropout masks (drawn on the CPU, replayed on
@@ -1379,7 +1390,7 @@ def main() -> int:
         kernels[name]["launches_by_path"]["train_entry"] = entry_launches[name]
 
     del tr1, tr3
-    torch.cuda.empty_cache()
+    free_memory()
 
     # ---- 12. data: the DexYCB loader on real-format frames ---------------------------------
     import shutil
@@ -1527,7 +1538,7 @@ def main() -> int:
         per_batch_ms=de_split,
         launches=de_launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     del tr_de
-    torch.cuda.empty_cache()
+    free_memory()
 
     # ---- 15. data_train: --mode train on the tree, device preprocess -----------------------
     dt_argv = ["--mode", "train", "--max_epochs", "1", "--data_dir", dex_root,
@@ -1562,7 +1573,7 @@ def main() -> int:
         last_losses=lt["losses"], wall_s=dt_wall, sub_eval_batches=n_sub,
         sub_eval_launches={"bank_mlp": K1.launches, "min_dist": K2.launches})
     del tr_dt
-    torch.cuda.empty_cache()
+    free_memory()
 
     # ---- 16. ho3d: --mode infer (codalab zips) and --mode train with infer_ho3d -------------
     import zipfile
@@ -1601,6 +1612,7 @@ def main() -> int:
     check(lines == [f"SM1/{i:04d}" for i in reversed(range(n_ho_eval))],
           "ho3d: evaluation.txt order")
     del tr_hi
+    free_memory()
     K1.launches = K2.launches = 0
     t_start = time.perf_counter()
     tr_ht = runner.run(get_config(["--mode", "train", "--max_epochs", "1", "--batch_size", str(bs),
@@ -1621,6 +1633,7 @@ def main() -> int:
         train_wall_s=ht_wall, train_losses=tr_ht.last_train["losses"],
         train_preprocess_ms=[p * 1e3 for p in tr_ht.last_train["preprocess_s"]], files=ht_files)
     del tr_ht
+    free_memory()
     shutil.rmtree(tmp_root)
     for name in kernels:
         kernels[name]["launches_by_path"].update(data_eval=de_launches[name])

@@ -314,29 +314,36 @@ def _replay_the_eager_run(V, ctx, model, batch, x0s, predict, candidates):
 def test_predict_graph_times_its_stages_on_every_replay(cuda_device):
     """The predict graph's stage marks are event nodes, recorded again by every replay: after
     each call the launch wait, trunk, ODE and aggregation read positive, and together no more
-    than events recorded around the call.  The eager warm-up takes the same marks."""
-    from vpho_tpu_torch.engine import profiling as P
-    from vpho_tpu_torch.engine.trainer import make_predict_step
+    than events recorded around the call.  The eager warm-up takes the same marks; the
+    candidate step, which runs the same ``forward_candidates``, captures none."""
+    from vpho_tpu_torch.engine.trainer import make_candidate_step, make_predict_step
+    from vpho_tpu_torch.utils import marks as M
 
     V, ctx, model, batch, x0s = _small_predict(cuda_device, "bfloat16")
     step = make_predict_step(model, ctx)
-    keys = [key for key, _, _ in P.STAGES]
-    step.eager(batch, x0s[0])
+    keys = [key for key, _, _ in M.STAGES]
+    step.eager(cuda_device, batch, x0s[0])
     torch.cuda.synchronize()
-    assert list(P.stage_seconds(step.marks)) == keys
+    assert list(M.stage_seconds(step.marks)) == keys
     step.capture(batch, x0s[0], warm=False)
     (_, graph), = step.graphs.values()
     assert list(graph.marks) == ["start", "trunk", "ode", "end"]
-    clock = P.Clock(cuda_device)
+    clock = M.Clock(cuda_device)
     for i in range(4):
         before = clock.mark()
         step(batch, x0s[i % 2])
         after = clock.mark()
         torch.cuda.synchronize()
-        got = P.stage_seconds(step.marks)
+        got = M.stage_seconds(step.marks)
         assert list(got) == keys
         assert all(v > 0.0 for v in got.values()), got
         assert sum(got.values()) <= clock.seconds(before, after), got
+    candidates = make_candidate_step(model, ctx)
+    candidates.capture(batch, x0s[0])
+    (_, graph), = candidates.graphs.values()
+    assert graph.marks == {}
+    candidates(batch, x0s[1])
+    assert candidates.marks == {}
 
 
 def test_kernel_tallies_count_replayed_launches(cuda_device):

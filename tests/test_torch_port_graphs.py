@@ -356,7 +356,7 @@ class _ReplayOnCPU:
     captures = 0
     marks = {}                              # a CPU "capture" records no stage marks
 
-    def __init__(self, fn, device, name, warm=True, signature=""):
+    def __init__(self, fn, device, name, warm=True, signature="", marked=False):
         type(self).captures += 1
         self.fn, self.out = fn, fn()
 

@@ -1,5 +1,6 @@
-"""The port's own measurement on the CPU (``engine/profiling.py``): host spans that a profiler
-sees and nothing else does, and the predict step's stage marks read into ``evaluate``'s timing.
+"""The port's own measurement on the CPU: host spans that a profiler sees and nothing else does
+(``engine/profiling.py``), and the predict step's stage marks (``utils/marks.py``) read into
+``evaluate``'s timing.
 
 Test size: patch 64, bs 2, S 2, one dpm3m step, topk 1/1, two synthetic batches, viz on batch 0
 only.  On the CPU the steps run op by op, so the marks read the host clock; the card's graphs
@@ -17,13 +18,14 @@ from vpho_tpu_torch.engine import profiling as P
 from vpho_tpu_torch.engine import trainer as TT
 from vpho_tpu_torch.engine.graphs import CapturedStep
 from vpho_tpu_torch.engine.runner import synthetic_stream
+from vpho_tpu_torch.utils import marks as M
 
 torch.set_num_threads(1)
 
 ARGV = ["--eval_batch_size", "2", "--batch_size", "2", "--sample_num", "2",
         "--sampling_steps", "1", "--patch_size", "64", "--topk_hand", "1", "--topk_obj", "1",
         "--repeat_num", "2", "--print_freq", "1", "--num_devices", "1"]
-STAGE_KEYS = [key for key, _, _ in P.STAGES]
+STAGE_KEYS = [key for key, _, _ in M.STAGES]
 SPAN = re.compile(r"^vpho\.([a-z0-9_.]+)(?:\[(\d+)\])?$")
 
 
@@ -73,44 +75,51 @@ def test_span_is_a_profiler_range_while_one_records():
 
 
 def test_stage_mark_outside_a_recording_records_nothing():
-    P.stage_mark("start")
-    assert P._marking is None
-    with P.marking(P.Clock("cpu")) as marks:
-        P.stage_mark("start")
-        with P.marking(P.Clock("cpu")) as inner:
-            P.stage_mark("trunk")
-        P.stage_mark("end")
-    P.stage_mark("ode")
+    M.stage_mark("start")
+    assert M._marking is None
+    with M.marking(M.Clock("cpu")) as marks:
+        M.stage_mark("start")
+        with M.marking(M.Clock("cpu")) as inner:
+            M.stage_mark("trunk")
+        M.stage_mark("end")
+    M.stage_mark("ode")
     assert set(marks) == {"start", "end"} and set(inner) == {"trunk"}
-    assert P._marking is None
+    assert M._marking is None
     assert marks["start"] <= inner["trunk"] <= marks["end"]
 
 
 def test_an_eager_step_keeps_its_marks():
+    """A marked step keeps its call's marks; any other step's marks do nothing (the candidate
+    step runs the same ``forward_candidates`` marks and keeps none)."""
     def fn(x):
-        P.stage_mark("start")
-        P.stage_mark("trunk")
+        M.stage_mark("start")
+        M.stage_mark("trunk")
         y = x * 2
-        P.stage_mark("ode")
-        P.stage_mark("end")
+        M.stage_mark("ode")
+        M.stage_mark("end")
         return y
 
-    step = CapturedStep(fn, "marked")
+    step = CapturedStep(fn, "marked", marked=True)
     assert torch.equal(step(torch.ones(3)), torch.full((3,), 2.0))
     assert set(step.marks) == {"launch", "start", "trunk", "ode", "end"}
-    got = P.stage_seconds(step.marks)
+    got = M.stage_seconds(step.marks)
     assert list(got) == STAGE_KEYS and all(v >= 0.0 for v in got.values())
-    assert P.stage_seconds({"launch": 1.0, "start": 1.5}) == {"launch_wait_s": 0.5}
+    assert M.stage_seconds({"launch": 1.0, "start": 1.5}) == {"launch_wait_s": 0.5}
+    plain = CapturedStep(fn, "plain")
+    assert torch.equal(plain(torch.ones(3)), torch.full((3,), 2.0))
+    assert plain.marks == {} and M._marking is None
 
 
 def test_evaluate_emits_its_spans_per_batch(profiled_eval):
     _, spans = profiled_eval
     for i in (0, 1):
-        for name in ("stage_wait", "batch", "x0", "postprocess", "testers", "rows_to_host"):
+        for name in ("stage_wait", "x0", "postprocess", "testers", "rows_to_host", "timing"):
             assert (name, i) in spans, (name, i)
     assert ("viz", 0) in spans and ("viz", 1) not in spans
     assert ("predict_step.eager", None) in spans           # both batches run op by op here
+    assert ("predict_step.copy_in", None) in spans         # the signature, before the eager run
     assert ("hand_metrics.eager", None) in spans
+    assert not any(name in ("batch", "train.epoch") for name, _ in spans)
 
 
 def test_evaluate_times_the_predict_stages(profiled_eval):
@@ -128,4 +137,4 @@ def test_train_epoch_emits_its_spans(trainer):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         trainer.train_one_epoch(0, synthetic_stream(trainer.ctx, trainer.cfg, 1, 2, seed=3), 1)
     spans = _spans(prof)
-    assert {("train.epoch", 0), ("stage_wait", 0), ("train.log", 0)} <= spans
+    assert {("stage_wait", 0), ("train.log", 0), ("train.epoch_end", 0)} <= spans

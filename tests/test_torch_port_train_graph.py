@@ -264,7 +264,7 @@ class _CheckedReplayOnCPU:
     state = []                              # the tensors a call moves, set by the test
     marks = {}                              # a CPU "capture" records no stage marks
 
-    def __init__(self, fn, device, name, warm=True, signature=""):
+    def __init__(self, fn, device, name, warm=True, signature="", marked=False):
         if warm:
             fn()
         saved = [t.detach().clone() for t in self.state]

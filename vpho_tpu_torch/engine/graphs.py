@@ -28,15 +28,18 @@ replayed with one host launch:
   * ``capturable(device)`` is the one place that decides whether a step on ``device`` is
     captured: a card without a process group or on an nccl group is; the CPU and a gloo group
     (whose collectives run through the host and cannot join a graph) run eagerly.
-  * Stage marks (``profiling.stage_mark``): a capture turns each mark of ``fn`` into an
-    event-record node, kept in ``Graph.marks`` and recorded again by every replay.  A step
-    whose graph has marks takes a ``launch`` mark on the stream just before the replay;
-    ``CapturedStep.marks`` holds the latest call's marks, read once the device has passed
-    them (``profiling.stage_seconds``).  A step run op by op (``eager``: the CPU's call, a
-    card's warm-up) takes the same marks on its device's clock.
-  * Host spans (``profiling.span``, seen only while a profiler records): ``<name>.copy_in``,
-    ``<name>.replay`` and ``<name>.clone_out`` of a replayed call, ``<name>.eager`` of an
-    eager one.
+  * Stage marks (``utils/marks.py::stage_mark``) of a step that asks for them
+    (``CapturedStep(..., marked=True)``, ``Graph(..., marked=True)``: the predict step): a
+    capture turns each mark of ``fn`` into an event-record node, kept in ``Graph.marks`` and
+    recorded again by every replay.  A step whose graph has a ``start`` mark takes a ``launch``
+    mark on the stream just before the replay; ``CapturedStep.marks`` holds the latest call's
+    marks, read once the device has passed them (``marks.stage_seconds``).  Such a step run op
+    by op (``eager``: the CPU's call, a card's warm-up) takes the same marks on its device's
+    clock.  In any other step a mark does nothing.
+  * Host spans (``profiling.span``, seen only while a profiler records): ``<name>.copy_in``
+    (the arguments' signature and, for a replay, their copy into the graph's inputs), then
+    ``<name>.replay`` and ``<name>.clone_out`` of a replayed call, ``<name>.eager`` of an eager
+    one.
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ from torch.utils import _pytree as pytree
 
 from ..ops import bank_mlp as K1
 from ..ops import min_dist as K2
+from ..utils import marks as M
 from . import profiling as P
 
 COUNTERS = ((K1, "launches"), (K1, "operations"), (K2, "launches"), (K2, "operations"))
@@ -131,13 +135,12 @@ class Graph:
     """One CUDA graph of ``fn()``: ``out`` holds its outputs, ``replay()`` runs it again.
 
     ``fn`` takes no arguments and reads and writes tensors that stay where they are.  With
-    ``warm`` (the default) it runs once eagerly on a side stream before the capture.  ``marks``
-    holds the events of its stage marks, recorded by every replay."""
+    ``warm`` (the default) it runs once eagerly on a side stream before the capture.  With
+    ``marked``, ``marks`` holds the events of its stage marks, recorded by every replay."""
 
     def __init__(self, fn: Callable[[], Any], device: torch.device, name: str,
-                 warm: bool = True, signature: str = ""):
+                 warm: bool = True, signature: str = "", marked: bool = False):
         self.name = name
-        self.replay_span = f"{name}.replay"
         try:
             if warm:
                 _warm(fn, device)
@@ -148,7 +151,8 @@ class Graph:
                 # thread_local: the loader's staging thread may pin memory meanwhile
                 with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
                     reserved = torch.cuda.memory_reserved(device)   # after the cache is emptied
-                    with no_host_sync(), P.marking(P.Clock(device, external=True)) as marks:
+                    with no_host_sync(), (M.marking(M.Clock(device, external=True)) if marked
+                                          else contextlib.nullcontext({})) as marks:
                         self.out = fn()
                     self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
             finally:
@@ -164,7 +168,7 @@ class Graph:
                  f"pool {self.pool_bytes / 1e9:.3f} GB")
 
     def replay(self) -> None:
-        with P.span(self.replay_span):
+        with P.span(f"{self.name}.replay"):
             self.graph.replay()
         _set_tallies([v + d for v, d in zip(_tallies(), self.moves)])
 
@@ -182,13 +186,13 @@ def signature(*args) -> Tuple:
 
 
 class CapturedStep:
-    """``fn(*args)`` captured once per argument signature and replayed (module docstring)."""
+    """``fn(*args)`` captured once per argument signature and replayed (module docstring);
+    ``marked``: ``fn`` takes stage marks, kept per call in ``marks``."""
 
-    def __init__(self, fn: Callable, name: str):
-        self.fn, self.name = fn, name
+    def __init__(self, fn: Callable, name: str, marked: bool = False):
+        self.fn, self.name, self.marked = fn, name, marked
         self.graphs: Dict[Tuple, Tuple[List[Any], Graph]] = {}
         self.marks: Dict[str, Any] = {}          # the latest call's stage marks
-        self.spans = {k: f"{name}.{k}" for k in ("copy_in", "clone_out", "eager")}
 
     @staticmethod
     def _flatten(args) -> Tuple[List[Any], Any, Tuple]:
@@ -215,35 +219,44 @@ class CapturedStep:
         paths = pytree.tree_flatten_with_path(args)[0]
         signature = ", ".join(f"{pytree.keystr(p)} {tuple(x.shape)} {str(x.dtype)[6:]}"
                               for p, x in paths if isinstance(x, torch.Tensor))
-        graph = Graph(lambda: self.fn(*replica), dev, self.name, warm=warm, signature=signature)
+        graph = Graph(lambda: self.fn(*replica), dev, self.name, warm=warm, signature=signature,
+                      marked=self.marked)
         self.graphs[key] = (static, graph)
 
-    def eager(self, *args):
-        """``fn(*args)`` op by op, its stage marks (after a ``launch`` mark) on the clock of
-        the arguments' device."""
-        clock = P.Clock(self._device(pytree.tree_leaves(args)))
-        with P.span(self.spans["eager"]), P.marking(clock) as marks:
-            marks["launch"] = clock.mark()
-            out = self.fn(*args)
+    def eager(self, device: torch.device, *args):
+        """``fn(*args)`` op by op on ``device``; a marked step's stage marks (after a
+        ``launch`` mark) on that device's clock."""
+        with P.span(f"{self.name}.eager"):
+            if not self.marked:
+                return self.fn(*args)
+            clock = M.Clock(device)
+            with M.marking(clock) as marks:
+                marks["launch"] = clock.mark()
+                out = self.fn(*args)
         self.marks = marks
         return out
 
     def __call__(self, *args):
-        leaves, _, key = self._flatten(args)
-        if self._device(leaves).type != "cuda":
-            return self.eager(*args)
-        if key not in self.graphs:
+        with P.span(f"{self.name}.copy_in"):
+            leaves, _, key = self._flatten(args)
+            dev = self._device(leaves)
+            entry = self.graphs.get(key)
+            if entry is not None:
+                static, graph = entry
+                with torch.no_grad():
+                    for s, x in zip(static, leaves):
+                        if isinstance(x, torch.Tensor):
+                            s.copy_(x)
+        if dev.type != "cuda":
+            return self.eager(dev, *args)
+        if entry is None:                       # a new signature: capture, then replay
             self.capture(*args)
-        static, graph = self.graphs[key]
-        with P.span(self.spans["copy_in"]), torch.no_grad():
-            for s, x in zip(static, leaves):
-                if isinstance(x, torch.Tensor):
-                    s.copy_(x)
-        if graph.marks:
+            return self(*args)
+        if "start" in graph.marks:
             launch = torch.cuda.Event(enable_timing=True)
             launch.record()
             self.marks = {"launch": launch, **graph.marks}
         graph.replay()
-        with P.span(self.spans["clone_out"]):
+        with P.span(f"{self.name}.clone_out"):
             return pytree.tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
                                    graph.out)

@@ -4,17 +4,6 @@
   * ``flops_of``: run a call under ``torch.utils.flop_counter.FlopCounterMode``; that mode sees
     aten ops only, so the operations of the hand-written kernels launched inside the call (K1,
     K2: their wrappers' ``operations`` counters) are added
-  * ``Clock``: marks that make the host wait for nothing, CUDA timing events on the current
-    stream on a card (``external``: events that a graph capture turns into event-record nodes,
-    recorded again by every replay), the host clock on the CPU; ``Clock.seconds`` between two
-  * ``stage_mark(name)``: a mark of the step being recorded (``marking``), else nothing: while
-    ``graphs.Graph`` captures, an external event, so the captured graph times its own stages
-    on the device; while ``graphs.CapturedStep`` runs a step op by op (the CPU, a card's
-    warm-up), the step's clock.  The predict step marks ``start``, ``trunk`` (after the trunk
-    and the regression's MANO FK), ``ode`` (after the ODE and the candidates' MANO FK) and
-    ``end``; with the ``launch`` mark its caller takes just before the graph's launch,
-    ``stage_seconds`` reads them as ``STAGES``: the launch wait (the device waiting for the
-    host's ``cudaGraphLaunch``), trunk, ODE and aggregation
   * ``span(name, batch)``: ``vpho.<name>[<batch>]`` as a profiler range while a profiler
     records, so a trace shows what the port's host was doing on the device's clock; otherwise
     one shared null context, at the cost of one check.  The range is a host operation
@@ -22,22 +11,19 @@
     profiler also lays an annotation over the device's timeline, which reads as device work
     (a union of the device's intervals would count the idle time under it as busy)
   * ``trace``: ``torch.profiler`` over a block, written as a Chrome trace into a directory
+
+The device-clock stage marks of a step (``stage_mark``, ``Clock``) are in ``utils/marks.py``.
 """
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from ..ops import bank_mlp as K1
 from ..ops import min_dist as K2
-
-# (timing key, from mark, to mark) of a marked predict step
-STAGES = (("launch_wait_s", "launch", "start"), ("trunk_s", "start", "trunk"),
-          ("ode_s", "trunk", "ode"), ("aggregate_s", "ode", "end"))
 
 
 def param_count(model: torch.nn.Module) -> int:
@@ -54,51 +40,6 @@ def flops_of(fn: Callable, *args, **kwargs):
         out = fn(*args, **kwargs)
     kernel = K1.operations + K2.operations - k0
     return out, {"flops": float(counter.get_total_flops()) + kernel, "kernel_flops": kernel}
-
-
-class Clock:
-    """Marks without host waits (module docstring)."""
-
-    def __init__(self, device, external: bool = False):
-        self.cuda = torch.device(device).type == "cuda"
-        self.external = external
-
-    def mark(self):
-        if self.cuda:
-            e = torch.cuda.Event(enable_timing=True, external=self.external)
-            e.record()
-            return e
-        return time.perf_counter()
-
-    @staticmethod
-    def seconds(a, b) -> float:
-        return a.elapsed_time(b) / 1e3 if isinstance(a, torch.cuda.Event) else b - a
-
-
-_marking: Optional[Tuple[Dict[str, Any], Clock]] = None     # the marks being recorded
-
-
-def stage_mark(name: str) -> None:
-    """A mark named ``name`` of the step being recorded; nothing outside one."""
-    if _marking is not None:
-        _marking[0][name] = _marking[1].mark()
-
-
-@contextlib.contextmanager
-def marking(clock: Clock) -> Iterator[Dict[str, Any]]:
-    """Record the block's ``stage_mark`` calls on ``clock``, into the dict it yields."""
-    global _marking
-    prev, _marking = _marking, ({}, clock)
-    try:
-        yield _marking[0]
-    finally:
-        _marking = prev
-
-
-def stage_seconds(marks: Dict[str, Any]) -> Dict[str, float]:
-    """The ``STAGES`` that ``marks`` (one call's, read once the device has passed them) hold."""
-    return {key: Clock.seconds(marks[a], marks[b]) for key, a, b in STAGES
-            if a in marks and b in marks}
 
 
 _NULL = contextlib.nullcontext()

@@ -70,11 +70,12 @@ from ..diffusion.sampler import draw_score_noise
 from ..models.layers import DropoutMasks
 from ..parallel import mesh
 from ..utils import transforms as T
+from ..utils.marks import STAGES, Clock, stage_mark, stage_seconds
 from ..utils.platform import resolve_device
 from . import viz
 from . import graphs as G
 from .graphs import CapturedStep
-from .profiling import STAGES, Clock, param_count, span, stage_mark, stage_seconds, trace
+from .profiling import param_count, span, trace
 from .tester import TesterHand, TesterObject
 
 X0Fn = Callable[[int, int], torch.Tensor]
@@ -268,14 +269,14 @@ def make_predict_step(model: V.VPHONet, ctx: V.VPHOContext) -> CapturedStep:
     batch signature on the card and replayed (``engine/graphs.py``), called eagerly on the CPU.
     Its outputs are the caller's: a later call does not overwrite them.  Its stage marks,
     ``start`` and ``end`` around ``forward_predict`` and ``trunk`` and ``ode`` inside it, time
-    the trunk, the ODE and the aggregation in the graph (``profiling.STAGES``)."""
+    the trunk, the ODE and the aggregation in the graph (``utils/marks.py::STAGES``)."""
     def predict(batch, x0):
         stage_mark("start")
         pd = V.forward_predict(model, ctx, batch, x0=x0)
         stage_mark("end")
         return pd
 
-    return CapturedStep(predict, "predict_step")
+    return CapturedStep(predict, "predict_step", marked=True)
 
 
 def make_candidate_step(model: V.VPHONet, ctx: V.VPHOContext) -> CapturedStep:
@@ -354,10 +355,11 @@ class TrainStep:
                  draws: Optional[V.Draws] = None) -> Dict[str, torch.Tensor]:
         """One call; ``masks`` (global, in call order) and ``draws`` (both losses') given in
         place of ``generator``'s are copied into the graph's inputs as they are."""
-        n = (mesh.batch_rows(int(batch["rgb"].shape[0])) or (len(batch["rgb"]),))[-1]
-        key = G.signature(batch)
         with torch.inference_mode(False), torch.enable_grad():
-            applies = self.opt.advance()
+            with span("train.advance"):
+                n = (mesh.batch_rows(int(batch["rgb"].shape[0])) or (len(batch["rgb"]),))[-1]
+                key = G.signature(batch)
+                applies = self.opt.advance()
             if key in self.mask_shapes:
                 with span("train.draws"):
                     if masks is None:
@@ -653,11 +655,6 @@ class Trainer:
         """``train_step`` over a host stream, logging the losses every ``--print_freq`` steps.
         Returns the last step's losses; ``last_train`` keeps the epoch's time, per-step spans
         and last losses (as floats)."""
-        with span("train.epoch", epoch):
-            return self._train_one_epoch(epoch, batches, steps_per_epoch)
-
-    def _train_one_epoch(self, epoch: int, batches: Iterable[Dict[str, Any]],
-                         steps_per_epoch: int) -> Dict[str, torch.Tensor]:
         gen = torch.Generator(device=self.device).manual_seed(1000 + epoch)
         noise_gen = torch.Generator(device=self.device).manual_seed(0x5A5A0000 + epoch)
         t0 = time.perf_counter()
@@ -673,13 +670,14 @@ class Trainer:
                                                 ).cpu().tolist()
                     self.logger.info(f"[{i:04d}/{steps_per_epoch}] " + " ".join(
                         f"{k.replace('_loss', '')}:{v:.2e}" for k, v in zip(last, vals)))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        seconds = time.perf_counter() - t0
-        timing = self.train_timing()
+        with span("train.epoch_end", epoch):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            seconds = time.perf_counter() - t0
+            timing = self.train_timing()
+            losses = dict(zip(last, mesh.mean_over_ranks(
+                torch.stack([v.float() for v in last.values()])).cpu().tolist()))
         split = {k: 1e3 * sum(v) / max(len(v), 1) for k, v in timing.items() if v}
-        losses = dict(zip(last, mesh.mean_over_ranks(
-            torch.stack([v.float() for v in last.values()])).cpu().tolist()))
         self.last_train = {"seconds": seconds, "steps": len(timing["step_s"]),
                            "losses": losses, **timing, "wait_s": waits,
                            "preprocess_s": [self._clock.seconds(*sp) if sp else 0.0
@@ -764,7 +762,7 @@ class Trainer:
         step = self._step("predict")
         run = lambda: step(batch, x0)
         if i == 0:
-            pd = step.eager(batch, x0)
+            pd = step.eager(self.device, batch, x0)
             step.capture(batch, x0, warm=False)
             return pd
         if i == 1 and self.cfg.trace_dir and not self._trace_done and mesh.is_main():
@@ -786,7 +784,9 @@ class Trainer:
         gt_hand_vert (camera frame), gt_obj_rt (3, 4), cam_intr and obj_id besides the model
         inputs.  Returns the report, the dump rows and the per-batch timing: seconds waited
         for the loader, of preprocess, predict and metrics (device spans on a GPU), of the
-        whole batch (host clock), and the frames."""
+        predict step's launch wait, trunk, ODE and aggregation (its stage marks, read after the
+        batch's one wait), of the whole batch (host clock), and the frames.  While a profiler
+        records, the loop's phases are ``vpho.*`` spans (``profiling.span``)."""
         path_of = path_of or self._eval_path_of()
         testers_hand = {k: TesterHand() for k in self.tester_hand_keys}
         testers_obj = {k: TesterObject(self.ctx.registry)
@@ -798,43 +798,42 @@ class Trainer:
         t_prev = time.perf_counter()
         with torch.inference_mode():
             for i, st in enumerate(self._staged(batches)):
-                with span("batch", i):
-                    b, valid, index = st.batch, st.valid, st.index
-                    with span("x0", i):
-                        x0 = self._x0(i, st, x0_for)
-                    m0 = clock.mark()
-                    pd = self._predict(i, b, x0)
-                    m1 = clock.mark()
-                    with span("postprocess", i):
-                        root, is_right = b["root_joint"], b["is_right"].bool()
-                        hv = lambda v: postprocess_hand_vert(v, root, is_right)
-                        pd_vert_agg = hv(pd["agg_hand_vert"])
-                        pd_joint_agg = hv(pd["agg_hand_joint"])
-                        pd_rt_agg = postprocess_obj_rt(pd["agg_obj_6d"], root)
-                        hand_preds = {
-                            "regression": (hv(pd["reg_hand_joint"]), hv(pd["reg_hand_vert"])),
-                            "one_candidate": (hv(pd["diff_final_hand_joint"][:, 0]),
-                                              hv(pd["diff_final_hand_vert"][:, 0])),
-                            "agg_candidate": (pd_joint_agg, pd_vert_agg)}
-                        rt_one = postprocess_obj_rt(pd["diff_final_obj_6d"][:, 0], root)
-                        obj_preds = {"one_candidate": rt_one, "mean_candidate_pose": pd_rt_agg}
-                    with span("testers", i):
-                        for key, (pj, pv) in hand_preds.items():
-                            testers_hand[key].add_batch(b["gt_joint"], pj, b["gt_hand_vert"], pv,
-                                                        is_right, valid)
-                        for key, rt in obj_preds.items():
-                            testers_obj[key].add_batch(rt, b["gt_obj_rt"], b["obj_id"],
-                                                       b["cam_intr"], valid)
-                    m2 = clock.mark()
-                    with span("rows_to_host", i):
-                        row = _host({"pd_obj_rt": pd_rt_agg, "pd_hand_vert": pd_vert_agg,
-                                     "pd_hand_joint": pd_joint_agg, "gt_obj_rt": b["gt_obj_rt"],
-                                     "obj_id": b["obj_id"].int()})
-                        row["pd_hand_vert"] = row["pd_hand_vert"].astype(np.float16)
-                        collector_res.append({**row, "_valid": valid, "_index": index})
-                    if self.cfg.viz_freq > 0 and i % self.cfg.viz_freq == 0 and mesh.is_main():
-                        with span("viz", i):
-                            self._viz(i, b, pd, pd_vert_agg, pd_rt_agg)
+                b, valid, index = st.batch, st.valid, st.index
+                with span("x0", i):
+                    x0 = self._x0(i, st, x0_for)
+                m0 = clock.mark()
+                pd = self._predict(i, b, x0)
+                m1 = clock.mark()
+                with span("postprocess", i):
+                    root, is_right = b["root_joint"], b["is_right"].bool()
+                    hv = lambda v: postprocess_hand_vert(v, root, is_right)
+                    pd_vert_agg, pd_joint_agg = hv(pd["agg_hand_vert"]), hv(pd["agg_hand_joint"])
+                    pd_rt_agg = postprocess_obj_rt(pd["agg_obj_6d"], root)
+                    hand_preds = {
+                        "regression": (hv(pd["reg_hand_joint"]), hv(pd["reg_hand_vert"])),
+                        "one_candidate": (hv(pd["diff_final_hand_joint"][:, 0]),
+                                          hv(pd["diff_final_hand_vert"][:, 0])),
+                        "agg_candidate": (pd_joint_agg, pd_vert_agg)}
+                    rt_one = postprocess_obj_rt(pd["diff_final_obj_6d"][:, 0], root)
+                    obj_preds = {"one_candidate": rt_one, "mean_candidate_pose": pd_rt_agg}
+                with span("testers", i):
+                    for key, (pj, pv) in hand_preds.items():
+                        testers_hand[key].add_batch(b["gt_joint"], pj, b["gt_hand_vert"], pv,
+                                                    is_right, valid)
+                    for key, rt in obj_preds.items():
+                        testers_obj[key].add_batch(rt, b["gt_obj_rt"], b["obj_id"], b["cam_intr"],
+                                                   valid)
+                m2 = clock.mark()
+                with span("rows_to_host", i):
+                    row = _host({"pd_obj_rt": pd_rt_agg, "pd_hand_vert": pd_vert_agg,
+                                 "pd_hand_joint": pd_joint_agg, "gt_obj_rt": b["gt_obj_rt"],
+                                 "obj_id": b["obj_id"].int()})
+                    row["pd_hand_vert"] = row["pd_hand_vert"].astype(np.float16)
+                    collector_res.append({**row, "_valid": valid, "_index": index})
+                if self.cfg.viz_freq > 0 and i % self.cfg.viz_freq == 0 and mesh.is_main():
+                    with span("viz", i):
+                        self._viz(i, b, pd, pd_vert_agg, pd_rt_agg)
+                with span("timing", i):
                     t_now = time.perf_counter()
                     timing["wait_s"].append(st.wait_s)
                     timing["preprocess_s"].append(

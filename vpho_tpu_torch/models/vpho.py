@@ -7,7 +7,7 @@
     the config and the device.
   * ``forward_predict`` = ``forward_candidates`` (trunk -> one 105-d probability-flow ODE over
     B*S hypotheses -> MANO FK) + ``hoi_aggregate``.  ``forward_candidates`` takes the stage
-    marks ``trunk`` and ``ode`` (``engine/profiling.py::stage_mark``) after those stages.
+    marks ``trunk`` and ``ode`` (``utils/marks.py::stage_mark``) after those stages.
   * ``forward_train``: the trunk in train mode and the weighted loss dict of one training step
     (score matching of both denoisers, heatmaps, MANO regression, physics).
 
@@ -25,10 +25,10 @@ import torch.nn as nn
 
 from ..diffusion.sampler import ode_sampler, score_matching_loss
 from ..diffusion.sde import SDE, init_sde
-from ..engine.profiling import stage_mark
 from ..ops.image import resample_rectilinear, resize_bilinear, roi_align
 from ..utils import transforms as T
 from ..utils.hand import get_joint_aligned_with_ho3d
+from ..utils.marks import stage_mark
 from ..utils.platform import resolve_device
 from . import aggregation as agg
 from . import anchor as anchor_lib
