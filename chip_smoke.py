@@ -7,7 +7,9 @@ Phases, one output line each:
   1. build    compile every hand-written kernel (one nvcc per source, in parallel); ptxas's
               registers, shared memory and spill bytes for each (spills fail the run)
   2. kernel   each kernel against its plain PyTorch version on the card, at the main path's
-              shapes and at edge shapes, with kernel / plain / library timings and bounds
+              shapes and at edge shapes, with kernel / plain / library timings and bounds; K3
+              at an eval batch's shapes (64 x 4000^2 full-mesh pairs with the registry's mask,
+              64 x 2048^2 sampled pairs) equal to its plain form bit for bit
   3. f32      the predict slice at test size on the card (TF32 off) against the same port on
               the CPU: same weights, same ODE start state
   4. predict  the blessed eval config (patch 256, bs 64, S 100, 50 dpm3m steps, topk 30/10,
@@ -26,9 +28,9 @@ Phases, one output line each:
               seconds and pool
   6. eval     the eval entry point, ``engine.runner.run`` in-process, at the blessed config
               (bf16, 4 batches of 64, the viz dumps of batch 0): frames/s over the batches after
-              the first, the predict / metrics / host split, peak memory, K1 = 50 and K2 = 2
-              launches a batch, the headline metrics, the files written, and ``--eval_path``
-              re-scoring the dumped pkl to the object report the eval logged
+              the first, the predict / metrics / host split, peak memory, K1 = 50, K2 = 2
+              and K3 = 4 launches a batch, the headline metrics, the files written, and
+              ``--eval_path`` re-scoring the dumped pkl to the object report the eval logged
   7. eval_f32 the metrics and testers on the card against the CPU for the same predictions,
               TF32 left on, within 1e-5 m; then (the ``graphs`` line, part metrics) one blessed
               eval batch's metrics (3 hand testers, 2 object testers, bs 64) eagerly under the
@@ -58,7 +60,7 @@ Phases, one output line each:
               difference, and the tensors where two eager runs differ
   11. train_entry ``engine.runner.run`` with ``--mode train --max_epochs 1`` (bf16, bs 64, patch
               256, the blessed sub-eval flags) on the train step's graphs, then the same epoch
-              with the step run eagerly: K1 = 50 and K2 = 2 launches a sub-eval batch, bf16
+              with the step run eagerly: K1 = 50, K2 = 2 and K3 = 4 launches a sub-eval batch, bf16
               steps/s both ways, every bf16 loss finite, ``epoch_1.state`` and ``final_model.pkl``;
               then a resume from ``epoch_1.state`` restores params, BN statistics, optimizer
               moments and step exactly, and ``--max_epochs 2`` trains the second epoch
@@ -75,12 +77,13 @@ Phases, one output line each:
               noise
   14. data_eval ``--mode eval --eval_full --device_preprocess`` on the tree at the blessed config
               (bf16, 4 batches): frames/s over all batches and with the loader's wait taken
-              out; loader wait / preprocess / predict / metrics per batch, K1 = 50 and K2 = 2
-              launches a batch, every metric finite
+              out; loader wait / preprocess / predict / metrics per batch, K1 = 50, K2 = 2 and
+              K3 = 4 launches a batch, every metric finite
   15. data_train ``--mode train --max_epochs 1 --device_preprocess`` on the tree (f32, bs 64,
               patch 256, 4 steps, the blessed sub-eval flags), the step on its graphs: steps/s,
               step spans, loader wait and preprocess per step, finite losses,
-              ``epoch_1.state``; the f32 sub-eval runs K2 twice a batch and K1's plain form
+              ``epoch_1.state``; the f32 sub-eval runs K2 twice and K3 four times a batch and K1's
+              plain form
   16. ho3d    a mini HO3D tree (64 train frames, 10 evaluation frames, 640x480 PNG):
               ``--mode infer`` writes both codalab zips with the evaluation frames in
               ``evaluation.txt`` order (each zip row is its frame's prediction in the OpenGL
@@ -103,8 +106,10 @@ Phases, one output line each:
               two gloo ranks (two processes on cuda:0, 2 x 8, eager) against the undistributed
               step; the ranks'
               parameters and BN statistics bit-identical; a blessed eval batch of 64 = 2 x 32
-              with K1 = 50 and K2 = 2 launches a rank and 64 rows gathered
-Then the card's ``name, power.limit``, the kernels' JSON line and, last, the result line.
+              with K1 = 50, K2 = 2 and K3 = 4 launches a rank and 64 rows gathered
+K3's tallies count 2 more launches for each capture of a registry's object-metrics step (its
+eager warm-up).  Then the card's ``name, power.limit``, the kernels' JSON line and, last, the
+result line.
 Any failed check raises, so the script exits non-zero and prints no result.  It needs one
 CUDA device and the checkout it sits in; without either it fails.
 """
@@ -140,6 +145,15 @@ def free_memory():
 
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def k3_launches(registry, batches):
+    """K3's launches over ``batches`` eval batches with ``registry``: 4 a batch (two object
+    testers, each ADD-S and F-score / Chamfer), 2 more for the eager warm-up before each
+    capture of the registry's object-metrics step."""
+    from vpho_tpu_torch.engine import tester as TTE
+
+    return 4 * batches + 2 * len(TTE.object_metrics_step(registry).graphs)
 
 
 def nbytes(*ts):
@@ -395,6 +409,7 @@ def ddp_rank(dev, work):
     from vpho_tpu_torch.engine.runner import synthetic_stream
     from vpho_tpu_torch.engine.trainer import Trainer
     from vpho_tpu_torch.ops import bank_mlp as K1
+    from vpho_tpu_torch.ops import metric_nn as K3
     from vpho_tpu_torch.ops import min_dist as K2
     from vpho_tpu_torch.parallel import mesh
 
@@ -424,10 +439,12 @@ def ddp_rank(dev, work):
     te = Trainer(ecfg, dev)
     te.init_state()
     te.model.load_state_dict(inp["eval_sd"])
-    K1.launches = K2.launches = 0
+    K1.launches = K2.launches = K3.launches = 0
     res = te.evaluate(synthetic_stream(te.ctx, ecfg, 1, 64, seed=53, with_eval_keys=True))
     torch.cuda.synchronize()
-    out.update(eval_launches={"bank_mlp": K1.launches, "min_dist": K2.launches},
+    out.update(eval_launches={"bank_mlp": K1.launches, "min_dist": K2.launches,
+                              "metric_nn": K3.launches},
+               eval_k3_want=k3_launches(te.ctx.registry, 1),
                eval_rows=sum(len(r["index"]) for r in res["collector_res"]),
                eval_local_rows=int(64 // mesh.world_size()),
                eval_report=res["report"], eval_predict_s=res["timing"]["predict_s"])
@@ -546,8 +563,8 @@ def ddp_phase(dev, card, eval_argv, kernels):
                   predict_s_per_rank=[r0["eval_predict_s"], r1["eval_predict_s"]]),
         wall_s=ddp_wall_s)
     check(identical, "ddp: the ranks' parameters or BN statistics differ after the step")
-    check(rank_launches == [{"bank_mlp": 50, "min_dist": 2}] * 2,
-          f"ddp eval launches per rank {rank_launches}")
+    check(all(r["eval_launches"] == {"bank_mlp": 50, "min_dist": 2, "metric_nn": r["eval_k3_want"]}
+              for r in (r0, r1)), f"ddp eval launches per rank {rank_launches}")
     check(r0["eval_rows"] == r1["eval_rows"] == 64 and r0["eval_report"] == r1["eval_report"],
           f"ddp eval rows {r0['eval_rows']}, {r1['eval_rows']}")
     for name in kernels:
@@ -566,6 +583,7 @@ def main() -> int:
         from vpho_tpu_torch.models import vpho as V
         from vpho_tpu_torch.ops import bank_mlp as K1
         from vpho_tpu_torch.ops import cuda_build
+        from vpho_tpu_torch.ops import metric_nn as K3
         from vpho_tpu_torch.ops import min_dist as K2
     except ImportError as exc:
         print(f"chip_smoke: run from a checkout of the repository ({exc})", file=sys.stderr)
@@ -724,6 +742,60 @@ def main() -> int:
     say(phase="kernel", **{k: v for k, v in kernels["min_dist"].items()
                            if k not in ("source", "replaces", "route")})
 
+    # ---- 2c. K3 metric_nn: an eval batch's distance calls on the registry's meshes --------
+    from vpho_tpu_torch.engine import metrics as TM
+    from vpho_tpu_torch.utils import transforms as TT
+
+    k3_reg, k3_ids = ctx.registry, batch["obj_id"].long()
+    rg = torch.Generator().manual_seed(5)
+    rot = lambda sc: TT.axis_angle_to_matrix(torch.randn(B, 3, generator=rg) * sc)
+    k3_R = rot(1.0)
+    k3_t = torch.cat([torch.randn(B, 2, generator=rg) * 0.02,
+                      0.5 + torch.rand(B, 1, generator=rg) * 0.2], -1)
+    k3_gt = torch.cat([k3_R, k3_t[..., None]], -1).to(dev)
+    k3_t = k3_t + torch.randn(B, 3, generator=rg) * 0.005
+    k3_pd = torch.cat([rot(0.05) @ k3_R, k3_t[..., None]], -1).to(dev)
+    # the object tester's two calls: F-score / Chamfer on the padded full meshes, ADD-S on the
+    # sampled points
+    vf, vs = k3_reg.verts_full[k3_ids], k3_reg.verts_sampled[k3_ids]
+    k3_calls = {"full": (TM._apply_rt(vf, k3_pd), TM._apply_rt(vf, k3_gt),
+                         k3_reg.verts_full_mask[k3_ids]),
+                "sampled": (TM._apply_rt(vs, k3_pd), TM._apply_rt(vs, k3_gt), None)}
+
+    def k3_library(a, b):                   # a time yardstick only: cdist rounds otherwise
+        d = torch.cdist(a, b)
+        return d.amin(-1), d.amin(-2)
+
+    k3_cases = {}
+    for name, (a, b, m) in k3_calls.items():
+        got, ref = K3.nearest(a, b, m), K3.nearest_plain(a, b, m)
+        torch.cuda.synchronize()
+        differ = sum(int((g.view(torch.int32) != r.view(torch.int32)).sum())
+                     for g, r in zip(got, ref))
+        check(differ == 0, f"K3 {name}: {differ} minima differ from the plain form's bits")
+        P, Q = a.shape[1], b.shape[1]
+        k3_flops = K3.flops(B, P, Q)
+        k3_bytes = nbytes(a, b) + (0 if m is None else nbytes(m)) + 4 * B * (P + Q)
+        k3_cases[name] = dict(
+            shape=[B, P, Q], masked=m is not None, bit_identical=True,
+            ms=cuda_ms(lambda: K3.nearest(a, b, m), 50),
+            bound_ms=max(k3_flops / PEAK_FP32_FLOPS, k3_bytes / PEAK_BYTES) * 1e3,
+            bound_by="operations" if k3_flops / PEAK_FP32_FLOPS > k3_bytes / PEAK_BYTES
+            else "bytes",
+            plain_ms=cuda_ms(lambda: K3.nearest_plain(a, b, m), 3),
+            library_ms=cuda_ms(lambda: k3_library(a, b), 5))
+    k3_batch = lambda key: 2 * sum(c[key] for c in k3_cases.values())   # two object testers
+    kernels["metric_nn"] = dict(
+        name="metric_nn", route="cuda", source="vpho_tpu_torch/csrc/metric_nn.cu",
+        replaces="none: the JAX package leaves the metrics' distance blocks to XLA",
+        bit_identical=True, ms=k3_batch("ms"), bound_ms=k3_batch("bound_ms"),
+        bound_by="operations", plain_ms=k3_batch("plain_ms"),
+        library_ms=k3_batch("library_ms"), per_call=k3_cases)
+    say(phase="kernel", per="eval batch (4 launches)",
+        **{k: v for k, v in kernels["metric_nn"].items()
+           if k not in ("source", "replaces", "route")})
+    del k3_calls, vf, vs
+
     # ---- 3. f32 slice on the card against the same port on the CPU ------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -761,7 +833,7 @@ def main() -> int:
     predict_step.capture(batch, x0)                 # the eager warm-up, then the capture
     torch.cuda.synchronize()
     capture_wall_s = time.perf_counter() - t_start
-    K1.launches = K2.launches = 0
+    K1.launches = K2.launches = K3.launches = 0
     n_batches, times = 3, []
     for _ in range(n_batches):
         torch.cuda.synchronize()
@@ -769,8 +841,8 @@ def main() -> int:
         pd = predict_step(batch, x0)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t_start)
-    launches = {"bank_mlp": K1.launches, "min_dist": K2.launches}
-    check(launches == {"bank_mlp": 50 * n_batches, "min_dist": 2 * n_batches},
+    launches = {"bank_mlp": K1.launches, "min_dist": K2.launches, "metric_nn": K3.launches}
+    check(launches == {"bank_mlp": 50 * n_batches, "min_dist": 2 * n_batches, "metric_nn": 0},
           f"launch counts {launches}")
     shapes = {"reg_hand_vert": (B, 778, 3), "hand_heatmap": (B, 21, 64, 64),
               "obj_heatmap": (B, 27, 64, 64), "diff_final_hand_mano": (B, S, 58),
@@ -874,13 +946,14 @@ def main() -> int:
     default_differ = sorted(k for k, v in bf16_eager.items() if not torch.equal(bf16_replay[k], v))
     del bf16_eager, bf16_replay
     # (c) one replayed batch and one eager batch under the profiler; the tallies of the replay
-    K1.launches = K2.launches = 0
+    K1.launches = K2.launches = K3.launches = 0
     rep = profiled(lambda: predict_step(batch, x0))
-    rep_tallies = {"bank_mlp": K1.launches, "min_dist": K2.launches}
+    rep_tallies = {"bank_mlp": K1.launches, "min_dist": K2.launches, "metric_nn": K3.launches}
     rep_profiler = {"bank_mlp": count_named(rep["kernels"], "bank_mlp_kernel"),
-                    "min_dist": count_named(rep["kernels"], "min_dist_kernel")}
+                    "min_dist": count_named(rep["kernels"], "min_dist_kernel"),
+                    "metric_nn": count_named(rep["kernels"], "metric_nn_kernel")}
     eag = profiled(lambda: V.forward_predict(model, ctx, batch, x0=x0))
-    check(rep_tallies == rep_profiler == {"bank_mlp": 50, "min_dist": 2},
+    check(rep_tallies == rep_profiler == {"bank_mlp": 50, "min_dist": 2, "metric_nn": 0},
           f"graphs: a replayed batch's launches, tallies {rep_tallies}, profiler {rep_profiler}")
     # (d) frames/s, eager and replayed in turns
     eager_ms, replay_ms = [], []
@@ -931,17 +1004,18 @@ def main() -> int:
                  "--output_dir", out_dir]          # --viz_freq 50: the viz dumps of batch 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K1.launches = K2.launches = 0
+    K1.launches = K2.launches = K3.launches = 0
     t_start = time.perf_counter()
     trainer = runner.run(get_config(eval_argv))
     torch.cuda.synchronize()
     eval_wall_s = time.perf_counter() - t_start
-    eval_launches = {"bank_mlp": K1.launches, "min_dist": K2.launches}
+    eval_launches = {"bank_mlp": K1.launches, "min_dist": K2.launches, "metric_nn": K3.launches}
     eval_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     res, tm = trainer.last_eval, trainer.last_eval["timing"]
     n_eval = len(tm["frames"])
     check(n_eval == 4 and tm["frames"] == [64] * 4, f"eval batches {tm['frames']}")
-    check(eval_launches == {"bank_mlp": 50 * n_eval, "min_dist": 2 * n_eval},
+    check(eval_launches == {"bank_mlp": 50 * n_eval, "min_dist": 2 * n_eval,
+                            "metric_nn": k3_launches(trainer.ctx.registry, n_eval)},
           f"eval launch counts {eval_launches}")
     steady = slice(1, None)                # batch 0 also counts the graph's operations
     per_batch = {k: sum(tm[k][steady]) / (n_eval - 1) * 1e3
@@ -1241,9 +1315,11 @@ def main() -> int:
         frames_per_s=dict(eager=64 * 5e3 / sum(t_eager_ms), replayed=64 * 5e3 / sum(t_replay_ms)),
         replayed=window(t_rep), eager=window(t_eag), peak_mem_gb=graphs_peak_gb,
         replayed_kernel_launches={"bank_mlp": count_named(t_rep["kernels"], "bank_mlp_kernel"),
-                                  "min_dist": count_named(t_rep["kernels"], "min_dist_kernel")})
+                                  "min_dist": count_named(t_rep["kernels"], "min_dist_kernel"),
+                                  "metric_nn": count_named(t_rep["kernels"], "metric_nn_kernel")})
     check(count_named(t_rep["kernels"], "bank_mlp_kernel") == 0
-          and count_named(t_rep["kernels"], "min_dist_kernel") == 0,
+          and count_named(t_rep["kernels"], "min_dist_kernel") == 0
+          and count_named(t_rep["kernels"], "metric_nn_kernel") == 0,
           "graphs train: a replayed train step launched a hand-written kernel")
     for name in kernels:
         kernels[name]["launches_by_path"]["train_step_replayed"] = 0
@@ -1321,16 +1397,17 @@ def main() -> int:
                   "--batch_size", "64", "--patch_size", "256", "--eval_batch_size", "64",
                   "--sample_num", "100", "--sampling_steps", "50", "--topk_hand", "30",
                   "--topk_obj", "10", "--viz_freq", "-1", "--output_dir", train_dir]
-    K1.launches = K2.launches = 0
+    K1.launches = K2.launches = K3.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t_start = time.perf_counter()
     tr1 = runner.run(get_config(entry_argv))
     torch.cuda.synchronize()
     entry_wall_s = time.perf_counter() - t_start
-    entry_launches = {"bank_mlp": K1.launches, "min_dist": K2.launches}
+    entry_launches = {"bank_mlp": K1.launches, "min_dist": K2.launches, "metric_nn": K3.launches}
     n_sub = len(tr1.last_eval["timing"]["frames"])
     check(n_sub == 2, f"train_entry sub-eval batches {n_sub}")
-    check(entry_launches == {"bank_mlp": 50 * n_sub, "min_dist": 2 * n_sub},
+    check(entry_launches == {"bank_mlp": 50 * n_sub, "min_dist": 2 * n_sub,
+                             "metric_nn": k3_launches(tr1.ctx.registry, n_sub)},
           f"train_entry launch counts {entry_launches}")
     lt = tr1.last_train
     check(len(lt["losses"]) == 14 and all(math.isfinite(v) for v in lt["losses"].values()),
@@ -1364,12 +1441,13 @@ def main() -> int:
              and all(torch.equal(a, b) for a, b in zip(o1.mu + o1.nu, o2.mu + o2.nu)))
     check(exact, "resume from epoch_1.state is not exact")
     del tr2
-    K1.launches = K2.launches = 0
+    K1.launches = K2.launches = K3.launches = 0
     tr3 = runner.run(get_config(resume_argv))
     check(tr3.step == 16 and os.path.isfile(os.path.join(tr3.save_dir, "checkpoint", "epoch_2.state")),
           f"resumed run: step {tr3.step}")
-    check(tr3.start_epoch == 1 and K1.launches == 100 and K2.launches == 4,
-          f"resumed run launches {K1.launches}, {K2.launches}")
+    check(tr3.start_epoch == 1 and K1.launches == 100 and K2.launches == 4
+          and K3.launches == k3_launches(tr3.ctx.registry, 2),
+          f"resumed run launches {K1.launches}, {K2.launches}, {K3.launches}")
     say(phase="train_entry", dtype="bfloat16", batch=64, patch=256, steps=lt["steps"],
         path="make_train_step, replayed", epoch_s=lt["seconds"],
         steps_per_s=lt["steps"] / lt["seconds"], frames_per_s=64 * lt["steps"] / lt["seconds"],
@@ -1510,17 +1588,18 @@ def main() -> int:
                "--sample_T0", "0.65", "--compute_dtype", "bfloat16"]
     de_argv = ["--mode", "eval", "--eval_full", "--data_dir", dex_root, "--device_preprocess",
                "--output_dir", os.path.join("output", "chip_smoke_data")] + blessed
-    K1.launches = K2.launches = 0
+    K1.launches = K2.launches = K3.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t_start = time.perf_counter()
     tr_de = runner.run(get_config(de_argv))
     torch.cuda.synchronize()
     de_wall = time.perf_counter() - t_start
-    de_launches = {"bank_mlp": K1.launches, "min_dist": K2.launches}
+    de_launches = {"bank_mlp": K1.launches, "min_dist": K2.launches, "metric_nn": K3.launches}
     tm = tr_de.last_eval["timing"]
     n_de = len(tm["frames"])
     check(tm["frames"] == [bs] * 4, f"data_eval batches {tm['frames']}")
-    check(de_launches == {"bank_mlp": steps * n_de, "min_dist": 2 * n_de},
+    check(de_launches == {"bank_mlp": steps * n_de, "min_dist": 2 * n_de,
+                          "metric_nn": k3_launches(tr_de.ctx.registry, n_de)},
           f"data_eval launch counts {de_launches}")
     check(all(p > 0 for p in tm["preprocess_s"]), "data_eval: a batch skipped the preprocess")
     de_report = tr_de.last_eval["report"]
@@ -1545,7 +1624,7 @@ def main() -> int:
                "--device_preprocess", "--batch_size", str(bs), "--print_freq", "1", "--viz_freq",
                "-1", "--output_dir", os.path.join("output", "chip_smoke_data_train")] + blessed
     dt_argv[dt_argv.index("--compute_dtype") + 1] = "float32"
-    K1.launches = K2.launches = 0
+    K1.launches = K2.launches = K3.launches = 0
     t_start = time.perf_counter()
     tr_dt = runner.run(get_config(dt_argv))
     torch.cuda.synchronize()
@@ -1559,10 +1638,11 @@ def main() -> int:
     check(os.path.isfile(os.path.join(tr_dt.save_dir, "checkpoint", "epoch_1.state")),
           "data_train: no epoch_1.state")
     # the float32 sub-eval takes K1's plain einsum form (the kernel is the bf16 policy's fast
-    # path, as in the JAX package) and K2 twice a batch
+    # path, as in the JAX package), K2 twice and K3 four times a batch
     n_sub = len(tr_dt.last_eval["timing"]["frames"])
-    check(K1.launches == 0 and K2.launches == 2 * n_sub,
-          f"data_train sub-eval launches {K1.launches}, {K2.launches}")
+    check(K1.launches == 0 and K2.launches == 2 * n_sub
+          and K3.launches == k3_launches(tr_dt.ctx.registry, n_sub),
+          f"data_train sub-eval launches {K1.launches}, {K2.launches}, {K3.launches}")
     check(len(tr_dt._step("train").graph.graphs) == 1 and not lt["forward_s"],
           "data_train: the epoch did not run on the train step's graphs")
     say(phase="data_train", dtype="float32", batch=bs, patch=patch, steps=lt["steps"],
@@ -1571,7 +1651,8 @@ def main() -> int:
         preprocess_ms=[p * 1e3 for p in lt["preprocess_s"]],
         step_ms=[v * 1e3 for v in lt["step_s"]],
         last_losses=lt["losses"], wall_s=dt_wall, sub_eval_batches=n_sub,
-        sub_eval_launches={"bank_mlp": K1.launches, "min_dist": K2.launches})
+        sub_eval_launches={"bank_mlp": K1.launches, "min_dist": K2.launches,
+                           "metric_nn": K3.launches})
     del tr_dt
     free_memory()
 
@@ -1583,13 +1664,14 @@ def main() -> int:
     build_mini_ho3d(ho_root, n_train=n_ho_train, n_eval=n_ho_eval, seed=43)
     ho_argv = ["--dataset_name", "ho3d", "--data_dir", ho_root, "--viz_freq", "-1",
                "--output_dir", os.path.join("output", "chip_smoke_ho3d")] + blessed
-    K1.launches = K2.launches = 0
+    K1.launches = K2.launches = K3.launches = 0
     t_start = time.perf_counter()
     tr_hi = runner.run(get_config(["--mode", "infer"] + ho_argv))
     torch.cuda.synchronize()
     hi_wall = time.perf_counter() - t_start
-    check(K1.launches == steps and K2.launches == 2,
-          f"ho3d infer launches {K1.launches}, {K2.launches}")
+    check(K1.launches == steps and K2.launches == 2
+          and K3.launches == k3_launches(tr_hi.ctx.registry, 1),
+          f"ho3d infer launches {K1.launches}, {K2.launches}, {K3.launches}")
     rows = pickle.load(open(os.path.join(tr_hi.save_dir,
                                          "my-prediction_align-2023_CVPR_HFL-infer.pkl"), "rb"))
     order = np.concatenate([r["index"] for r in rows])
@@ -1613,7 +1695,7 @@ def main() -> int:
           "ho3d: evaluation.txt order")
     del tr_hi
     free_memory()
-    K1.launches = K2.launches = 0
+    K1.launches = K2.launches = K3.launches = 0
     t_start = time.perf_counter()
     tr_ht = runner.run(get_config(["--mode", "train", "--max_epochs", "1", "--batch_size", str(bs),
                                    "--full_evaluation_freq", "1", "--device_preprocess",
@@ -1627,7 +1709,9 @@ def main() -> int:
         check(want in ht_files, f"ho3d train: no {want} in {ht_files}")
     check(tr_ht.step == 1 and all(math.isfinite(v) for v in tr_ht.last_train["losses"].values()),
           f"ho3d train: step {tr_ht.step}, losses {tr_ht.last_train['losses']}")
-    check(K1.launches == steps and K2.launches == 2, f"ho3d train infer launches {K1.launches}")
+    check(K1.launches == steps and K2.launches == 2
+          and K3.launches == k3_launches(tr_ht.ctx.registry, 1),
+          f"ho3d train infer launches {K1.launches}, {K2.launches}, {K3.launches}")
     say(phase="ho3d", train_frames=n_ho_train, eval_frames=n_ho_eval, frame="640x480 png",
         infer_wall_s=hi_wall, zip_bytes=zips, zip_vs_pkl_max_abs_err=zip_err,
         train_wall_s=ht_wall, train_losses=tr_ht.last_train["losses"],
@@ -1692,7 +1776,7 @@ def main() -> int:
                 device_ms=w["busy_ms"] / n_win, wall_ms=w["wall_ms"] / n_win,
                 busy_share=w["busy_ms"] / w["wall_ms"])
     # (a) one bs-64 batch at the full iteration counts through ForceOptimizer.run_batch (graphs)
-    K1.launches = K2.launches = 0
+    K1.launches = K2.launches = K3.launches = 0
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1734,8 +1818,9 @@ def main() -> int:
     t_start = time.perf_counter()
     force_optim_main(["--data_dir", f_dex, "--batch_size", str(bs)])
     main_s = time.perf_counter() - t_start
-    force_launches = {"bank_mlp": K1.launches, "min_dist": K2.launches}
-    check(force_launches == {"bank_mlp": 0, "min_dist": 0}, f"force launches {force_launches}")
+    force_launches = {"bank_mlp": K1.launches, "min_dist": K2.launches, "metric_nn": K3.launches}
+    check(force_launches == {"bank_mlp": 0, "min_dist": 0, "metric_nn": 0},
+          f"force launches {force_launches}")
     fds = DX.DexYCBForceDataset(get_config(["--data_dir", f_dex]), f_dex, is_train=True)
     n_labels = 0
     for i in range(len(fds)):
@@ -1784,7 +1869,7 @@ def main() -> int:
     ddp_phase(dev, card, eval_argv, kernels)
 
     print(card)
-    print(json.dumps({"kernels": [kernels["bank_mlp"], kernels["min_dist"]]}))
+    print(json.dumps({"kernels": [kernels["bank_mlp"], kernels["min_dist"], kernels["metric_nn"]]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels (K1 bank-MLP, K2 nearest-vertex search) against their plain
-PyTorch versions on the card, one training step on the card, the device preprocess
+"""The hand-written CUDA kernels (K1 bank-MLP, K2 nearest-vertex search, K3 the metrics'
+nearest points) against their plain PyTorch versions on the card, the object metrics on the
+card against the CPU, one training step on the card, the device preprocess
 (``--device_preprocess``) on the card against itself on the CPU, and the captured steps
 (``engine/graphs.py``): a replay equal to the eager run bit for bit, the kernels' tallies
 counting replayed launches, the predict graph's stage marks read on every replay, a capture
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from vpho_tpu_torch.ops import bank_mlp as K1
+from vpho_tpu_torch.ops import metric_nn as K3
 from vpho_tpu_torch.ops import min_dist as K2
 
 pytestmark = pytest.mark.cuda
@@ -55,6 +57,54 @@ def assert_argmin_equivalent(fp, verts, idx_got, idx_ref, rel=1e-6):
         np.testing.assert_array_equal(idx_got[b][clear], idx_ref[b][clear])
         pick = lambda i: np.take_along_axis(d, i[..., None].astype(np.int64), -1)[..., 0]
         assert np.all(pick(idx_got[b]) <= pick(idx_ref[b]) + rel * scale)
+
+
+def rts(rng, n, rotation, spread=0.05, angle=1.0):
+    """Camera-frame (n, 3, 4) ground-truth poses ~0.6 m out and predictions near them;
+    ``rotation`` turns (n, 3) float32 axis-angles into (n, 3, 3) numpy matrices."""
+    R = rotation(rng.randn(n, 3).astype(np.float32) * angle)
+    t = np.concatenate([rng.randn(n, 2) * 0.02, 0.5 + rng.rand(n, 1) * 0.2], -1)
+    gt = np.concatenate([R, t[..., None]], -1).astype(np.float32)
+    dR = rotation(rng.randn(n, 3).astype(np.float32) * spread)
+    pd = np.concatenate([np.einsum("nij,njk->nik", dR, R),
+                         (t + rng.randn(n, 3) * spread * 0.1)[..., None]], -1)
+    return pd.astype(np.float32), gt
+
+
+def metric_inputs(rotation):
+    """The metric tests' inputs: 6 samples' object poses (``rts``), ids and cameras, and hands
+    ~0.6 m out with predictions ~1 cm off."""
+    rng = np.random.RandomState(4)
+    n = 6
+    pd_rt, gt_rt = rts(rng, n, rotation)
+    gt_joint = (rng.randn(n, 21, 3) * 0.05 + [0, 0, 0.6]).astype(np.float32)
+    gt_vert = (rng.randn(n, 778, 3) * 0.05 + [0, 0, 0.6]).astype(np.float32)
+    return dict(
+        pd_rt=pd_rt, gt_rt=gt_rt, obj_ids=rng.randint(0, 21, n).astype(np.int32),
+        cam=np.tile(np.array([[300.0, 0, 128], [0, 300.0, 128], [0, 0, 1]], np.float32),
+                    (n, 1, 1)) * np.array([1.0, 1.1, 0.9, 1.0, 1.2, 1.0])[:, None, None]
+        .astype(np.float32),
+        gt_joint=gt_joint, pd_joint=(gt_joint + rng.randn(n, 21, 3) * 0.01).astype(np.float32),
+        gt_vert=gt_vert, pd_vert=(gt_vert + rng.randn(n, 778, 3) * 0.01).astype(np.float32),
+        is_right=np.array([True, False, True, True, False, True]))
+
+
+def _nn_case(seed, N, P, Q, masked=False):
+    """K3's inputs: points ~0.6 m from the camera, as ``metric_inputs`` places them; b a few mm
+    from a's first Q points, a fifth of them exact copies (zero distances).  ``masked``: each
+    sample has a ragged number of real points (P == Q), the rest padding that repeats its
+    first point, as the registry pads a mesh."""
+    rng = np.random.RandomState(seed)
+    a = rng.randn(N, max(P, Q), 3) * 0.05 + [0, 0, 0.6]
+    b = a[:, :Q] + rng.randn(N, Q, 3) * 0.003 * (rng.rand(N, Q, 1) > 0.2)
+    a, mask = a[:, :P], None
+    if masked:
+        real = P - rng.randint(0, P // 3, N)
+        real[0] = P                                          # one sample without padding
+        mask = (np.arange(P)[None] < real[:, None]).astype(np.float32)
+        a = np.where(mask[..., None] > 0, a, a[:, :1])
+        b = np.where(mask[..., None] > 0, b, b[:, :1])
+    return a.astype(np.float32), b.astype(np.float32), mask
 
 
 @pytest.fixture
@@ -110,6 +160,55 @@ def test_min_dist_kernel_matches_plain(cuda_device, B, N, V):
                                      torch.from_numpy(verts).to(cuda_device))
     np.testing.assert_allclose(d.cpu().numpy(), d_ref.cpu().numpy(), rtol=0, atol=1e-5)
     assert_argmin_equivalent(fp, verts, i.cpu().numpy(), i_ref.cpu().numpy())
+
+
+# K3's shapes: ADD-S's 2048 x 2048 at N 1, 3 and 64; the full mesh's 4000 x 4000 with its
+# padding masked; P != Q at ragged sizes
+K3_SHAPES = [(1, 2048, 2048, False), (3, 2048, 2048, False), (64, 2048, 2048, False),
+             (3, 4000, 4000, True), (1, 1, 1000, False), (2, 33, 1000, False),
+             (3, 777, 1000, False)]
+
+
+@pytest.mark.parametrize("N,P,Q,masked", K3_SHAPES)
+def test_metric_nn_kernel_matches_plain_bit_for_bit(cuda_device, N, P, Q, masked):
+    a, b, mask = (None if x is None else torch.from_numpy(x).to(cuda_device)
+                  for x in _nn_case(N * 10000 + P, N, P, Q, masked))
+    before = K3.launches
+    got = K3.nearest(a, b, mask)
+    torch.cuda.synchronize()
+    assert K3.launches == before + 1
+    ref = K3.nearest_plain(a, b, mask)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype == torch.float32
+        assert torch.equal(g.view(torch.int32), r.view(torch.int32)), \
+            int((g.view(torch.int32) != r.view(torch.int32)).sum())
+
+
+def test_object_metrics_on_the_card_match_the_cpu(cuda_device):
+    """``object_metrics`` with K3 on the card against the port on the CPU (the plain form), at
+    the metric tests' inputs (rotations by the port's transform: this file has no JAX), with
+    ``test_object_metrics``'s assertions, which hold the CPU's numbers to the JAX package's."""
+    from vpho_tpu_torch.engine import metrics as M
+    from vpho_tpu_torch.engine import tester as TE
+    from vpho_tpu_torch.models import vpho as V
+    from vpho_tpu_torch.utils import transforms as TR
+
+    a = metric_inputs(lambda aa: TR.axis_angle_to_matrix(torch.from_numpy(aa)).numpy())
+    args = [torch.from_numpy(a[k]) for k in ("pd_rt", "gt_rt", "obj_ids", "cam")]
+    mcfg = V.ModelConfig(sample_num=2, topk_hand=1, topk_obj=1)
+    ref = M.object_metrics(V.make_context(mcfg, device="cpu").registry, *args)
+    before = K3.launches
+    got = M.object_metrics(V.make_context(mcfg, device=cuda_device).registry,
+                           *[t.to(cuda_device) for t in args])
+    torch.cuda.synchronize()
+    assert K3.launches == before + 2
+    assert set(got) == set(ref)
+    for k in ref:
+        g, r = got[k].cpu().numpy(), ref[k].numpy()
+        if k in TE.RATE_KEYS or k.startswith("FSCORE@"):
+            np.testing.assert_array_equal(g, r, err_msg=k)
+        else:
+            np.testing.assert_allclose(g, r, rtol=1e-5, atol=0, err_msg=k)
 
 
 def test_train_step_on_the_card(cuda_device, tmp_path):

@@ -40,6 +40,7 @@ from vpho_tpu_torch.models import vpho as TV
 from vpho_tpu_torch.ops import heatmap as theatmap
 from vpho_tpu_torch.utils import transforms as TT
 from vpho_tpu_torch.utils.weights import state_dict_from_jax
+from test_torch_port_cuda import metric_inputs as _metric_inputs, rts
 
 torch.set_num_threads(1)
 
@@ -71,15 +72,13 @@ def registries(contexts):
     return jreg, treg
 
 
+def _jax_rotation(aa):
+    return np.asarray(JT.axis_angle_to_matrix(aa))
+
+
 def _rts(rng, n, spread=0.05, angle=1.0):
     """Camera-frame (n, 3, 4) ground-truth poses ~0.6 m out and predictions near them."""
-    R = np.asarray(JT.axis_angle_to_matrix(rng.randn(n, 3).astype(np.float32) * angle))
-    t = np.concatenate([rng.randn(n, 2) * 0.02, 0.5 + rng.rand(n, 1) * 0.2], -1)
-    gt = np.concatenate([R, t[..., None]], -1).astype(np.float32)
-    dR = np.asarray(JT.axis_angle_to_matrix(rng.randn(n, 3).astype(np.float32) * spread))
-    pd = np.concatenate([np.einsum("nij,njk->nik", dR, R),
-                         (t + rng.randn(n, 3) * spread * 0.1)[..., None]], -1)
-    return pd.astype(np.float32), gt
+    return rts(rng, n, _jax_rotation, spread, angle)
 
 
 # ---- config -----------------------------------------------------------------------------
@@ -203,19 +202,7 @@ def test_heatmaps_and_fixture_keys(contexts):
 
 @pytest.fixture(scope="module")
 def metric_inputs():
-    rng = np.random.RandomState(4)
-    n = 6
-    pd_rt, gt_rt = _rts(rng, n)
-    gt_joint = (rng.randn(n, 21, 3) * 0.05 + [0, 0, 0.6]).astype(np.float32)
-    gt_vert = (rng.randn(n, 778, 3) * 0.05 + [0, 0, 0.6]).astype(np.float32)
-    return dict(
-        pd_rt=pd_rt, gt_rt=gt_rt, obj_ids=rng.randint(0, 21, n).astype(np.int32),
-        cam=np.tile(np.array([[300.0, 0, 128], [0, 300.0, 128], [0, 0, 1]], np.float32),
-                    (n, 1, 1)) * np.array([1.0, 1.1, 0.9, 1.0, 1.2, 1.0])[:, None, None]
-        .astype(np.float32),
-        gt_joint=gt_joint, pd_joint=(gt_joint + rng.randn(n, 21, 3) * 0.01).astype(np.float32),
-        gt_vert=gt_vert, pd_vert=(gt_vert + rng.randn(n, 778, 3) * 0.01).astype(np.float32),
-        is_right=np.array([True, False, True, True, False, True]))
+    return _metric_inputs(_jax_rotation)
 
 
 def test_hand_metrics(metric_inputs):

@@ -1,5 +1,6 @@
-"""The port's two kernels (K1 bank-MLP, K2 nearest-vertex search) against the JAX package's
-Pallas kernels, plus the port's import and device rules.
+"""The port's kernels K1 (bank-MLP) and K2 (nearest-vertex search) against the JAX package's
+Pallas kernels, K3 (the metrics' nearest points, which no Pallas kernel had) against the JAX
+package's distance block and its operation counts, plus the port's import and device rules.
 
 On the CPU each port wrapper takes its kernel's plain version; here that plain version is
 held against the Pallas kernel run in interpret mode, on the inputs of the JAX package's own
@@ -9,16 +10,21 @@ kernel tests.  The hand-written kernels themselves are tested on the card by
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from benchmark import roofline, roofline_k3
+from vpho_tpu.engine.metrics import _pairwise_min_dist as jax_pairwise_min_dist
 from vpho_tpu.ops.pallas_bank import fused_bank_mlp
 from vpho_tpu.ops.pallas_dist import min_dist_and_idx as jax_min_dist
 from vpho_tpu_torch.ops import bank_mlp as K1
+from vpho_tpu_torch.ops import metric_nn as K3
 from vpho_tpu_torch.ops import min_dist as K2
-from test_torch_port_cuda import _bank_case, _dist_case, _port_bank, assert_argmin_equivalent
+from test_torch_port_cuda import (_bank_case, _dist_case, _nn_case, _port_bank,
+                                  assert_argmin_equivalent)
 
 torch.set_num_threads(1)
 
@@ -99,6 +105,41 @@ def test_min_dist_plain_matches_pallas(B, N, P, V):
     assert_argmin_equivalent(fp, verts, i.numpy(), np.asarray(i_ref))
 
 
+# ADD-S's P = Q without a mask, the full mesh's with ragged padding, P != Q
+@pytest.mark.parametrize("N,P,Q,masked", [(2, 96, 96, False), (3, 120, 120, True),
+                                          (2, 33, 70, False)])
+def test_metric_nn_on_the_cpu_is_the_plain_form(N, P, Q, masked):
+    """K3's wrapper on CPU tensors returns the plain form's numbers (any chunk), launches
+    nothing, and both directions hold to the JAX package's distance block, exact zeros
+    included."""
+    a, b, mask = _nn_case(N * 1000 + P, N, P, Q, masked)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    tm = None if mask is None else torch.from_numpy(mask)
+    before = K3.launches
+    d_ab, d_ba = K3.nearest(ta, tb, tm)
+    assert K3.launches == before
+    for got, ref in zip((d_ab, d_ba), K3.nearest_plain(ta, tb, tm, chunk=1)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    jm = None if mask is None else jnp.asarray(mask)
+    ref = jax.jit(jax_pairwise_min_dist)
+    # the jitted reference fuses its own sums: within test_object_metrics's rtol
+    np.testing.assert_allclose(d_ab.numpy(), np.asarray(ref(a, b, jm)), rtol=1e-5, atol=0)
+    np.testing.assert_allclose(d_ba.numpy(), np.asarray(ref(b, a, jm)), rtol=1e-5, atol=0)
+
+
+def test_metric_nn_operation_counts():
+    """8 operations a pair, each call's pairs once: the eval batch's four calls (two testers,
+    each 64 x 4000^2 full-mesh and 64 x 2048^2 sampled pairs) are the benchmark's bound."""
+    assert K3.flops(64, 4000, 4000) == 8 * 64 * 4000 * 4000
+    assert K3.flops(1, 33, 1000) == 8 * 33 * 1000
+    batch = 2 * (K3.flops(64, 4000, 4000) + K3.flops(64, 2048, 2048))
+    assert roofline_k3.k3_flops(64) == batch == 8 * 2 * 64 * (4000 ** 2 + 2048 ** 2)
+    assert batch / 8 == pytest.approx(2.58e9, rel=2e-3)
+    assert roofline_k3.k3_least_s(64) == batch / roofline.PEAK_FP32_FLOPS
+    assert roofline_k3.k3_least_s(1) == 2 * (K3.flops(1, 4000, 4000) + K3.flops(1, 2048, 2048)) \
+        / roofline.PEAK_FP32_FLOPS
+
+
 def test_cuda_wrappers_refuse_bad_inputs():
     meta = torch.empty((2, 3, 32, 3), device="meta")
     with pytest.raises(ValueError):
@@ -109,6 +150,15 @@ def test_cuda_wrappers_refuse_bad_inputs():
                     torch.empty((2, 4, 256), device="meta"),
                     torch.empty((4, 256, 3), device="meta", dtype=torch.bfloat16),
                     torch.empty((4, 3), device="meta"), 4)
+    a, mask = torch.empty((2, 50, 3), device="meta"), torch.empty((2, 50), device="meta")
+    for args in ((a.half(), a, None),                                # f16 points
+                 (a, torch.empty((3, 50, 3), device="meta"), None),  # N differs
+                 (a, torch.empty((2, 60, 3), device="meta"), mask[:, :1].expand(2, 50)),
+                 (a, a, torch.empty((2, 60), device="meta")),        # mask not (N, P)
+                 (a, a, mask.half()),
+                 (a, torch.empty((2, 3, 50), device="meta").transpose(1, 2), None)):
+        with pytest.raises(ValueError):
+            K3.nearest(*args)
 
 
 def test_port_imports_no_jax():

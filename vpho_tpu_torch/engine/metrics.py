@@ -9,12 +9,16 @@ Arithmetic.  The nearest-point distances expand |a - b|^2 as |a|^2 + |b|^2 - 2 a
 reference does, and that form cancels: a point 0.6 m from the camera carries |a|^2 ~ 0.36, so
 one rounding of a 3-term dot product moves d^2 by ~3e-8 m^2, which is 2e-4 m on a distance
 near zero and moves points across the F-score thresholds.  So every 3-term dot product here
-(point transforms, projections and the distance expansion) is ``dot3``: the first product,
-then two fused multiply-adds, each exact product rounded once (emulated in float64).  That is
-the rounding of the JAX package's CPU arithmetic, so the port reproduces its numbers, and it
-is plain elementwise arithmetic on every device: no matmul, whatever the TF32 flags say.  The
-(P, Q) distance blocks are built a few samples at a time (``chunk``) to bound peak memory;
-the chunk changes no result.
+(point transforms, projections and the distance expansion) is ``dot3`` (``ops/metric_nn.py``):
+the first product, then two fused multiply-adds, each exact product rounded once.  That is the
+rounding of the JAX package's CPU arithmetic, so the port reproduces its numbers, and it is
+plain elementwise arithmetic on every device: no matmul, whatever the TF32 flags say.  Plain
+PyTorch has no float32 FMA, so ``dot3`` emulates it in float64.  The (P, Q) distance blocks are
+the one place where that costs: on a card ``pairwise_min_dist`` launches K3
+(``ops/metric_nn.py``, ``csrc/metric_nn.cu``), which rounds with the card's own FMA in float32,
+keeps every pair in registers and gives the plain form's numbers; on the CPU it builds the
+plain form's blocks a few samples at a time (``chunk``) to bound peak memory, and the chunk
+changes no result.
 """
 from __future__ import annotations
 
@@ -27,6 +31,8 @@ import numpy as np
 import torch
 
 from ..models.ycb import YCBRegistry
+from ..ops import metric_nn as K3
+from ..ops.metric_nn import dot3
 from ..utils import transforms as T
 from ..utils.platform import device_index
 
@@ -36,22 +42,6 @@ BBOX8_IN_KPT27 = [0, 2, 6, 8, 18, 20, 24, 26]
 FSCORE_THRESHOLDS = (0.002, 0.005, 0.010, 0.020, 0.050, 0.100)
 FSCORE_KEYS = ("FSCORE@2mm", "FSCORE@5mm", "FSCORE@10mm",
                "FSCORE@2cm", "FSCORE@5cm", "FSCORE@10cm")
-
-# elements of one (chunk, P, Q) distance block
-_BLOCK_ELEMENTS = 1 << 25
-
-
-def _fma(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """float32 x * y + z with one rounding (the float32 product is exact in float64)."""
-    acc = z.double()
-    return acc.addcmul_(x.double(), y.double()).float()
-
-
-def dot3(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """sum_i x[..., i] y[..., i] over a last axis of 3, broadcasting, rounded as the
-    reference's CPU arithmetic rounds it (see the module docstring)."""
-    acc = x[..., 0] * y[..., 0]
-    return _fma(x[..., 2], y[..., 2], _fma(x[..., 1], y[..., 1], acc))
 
 
 def _apply_rt(pts: torch.Tensor, rt: torch.Tensor) -> torch.Tensor:
@@ -69,24 +59,9 @@ def pairwise_min_dist(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor | Non
                       chunk: int | None = None):
     """Nearest-point distances both ways between a (N, P, 3) and b (N, Q, 3): returns
     (min over b for each a (N, P), min over a for each b (N, Q)).  ``mask`` (N, P == Q) marks
-    the real points of both sets (mesh padding is skipped).  The expanded d^2 is symmetric
-    bit for bit, so one (P, Q) block per sample serves both directions."""
-    N, P, Q = a.shape[0], a.shape[1], b.shape[1]
-    chunk = chunk or max(1, _BLOCK_ELEMENTS // (P * Q))
-    a2, b2 = dot3(a, a), dot3(b, b)
-    d_ab, d_ba = [], []
-    for s in range(0, N, chunk):
-        e = slice(s, s + chunk)
-        ab = dot3(a[e, :, None, :], b[e, None, :, :])
-        d2 = torch.clamp_min((a2[e, :, None] + b2[e, None, :]) - 2.0 * ab, 0.0)
-        if mask is None:
-            d_ab.append(d2.amin(-1))
-            d_ba.append(d2.amin(-2))
-        else:
-            m = mask[e] > 0
-            d_ab.append(torch.where(m[:, None, :], d2, torch.inf).amin(-1))
-            d_ba.append(torch.where(m[:, :, None], d2, torch.inf).amin(-2))
-    return torch.sqrt(torch.cat(d_ab)), torch.sqrt(torch.cat(d_ba))
+    the real points of both sets (mesh padding is skipped).  K3 on a card, the plain form
+    (``chunk`` samples a block) on the CPU: ``ops/metric_nn.py::nearest``."""
+    return K3.nearest(a, b, mask, chunk)
 
 
 def hand_metrics(gt_joint, pd_joint, gt_vert, pd_vert) -> Dict[str, torch.Tensor]:

@@ -3,7 +3,7 @@
   * ``param_count``: parameter total of a module
   * ``flops_of``: run a call under ``torch.utils.flop_counter.FlopCounterMode``; that mode sees
     aten ops only, so the operations of the hand-written kernels launched inside the call (K1,
-    K2: their wrappers' ``operations`` counters) are added
+    K2, K3: their wrappers' ``operations`` counters) are added
   * ``span(name, batch)``: ``vpho.<name>[<batch>]`` as a profiler range while a profiler
     records, so a trace shows what the port's host was doing on the device's clock; otherwise
     one shared null context, at the cost of one check.  The range is a host operation
@@ -23,6 +23,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ..ops import bank_mlp as K1
+from ..ops import metric_nn as K3
 from ..ops import min_dist as K2
 
 
@@ -35,10 +36,10 @@ def flops_of(fn: Callable, *args, **kwargs):
     where ``flops`` counts every operation and ``kernel_flops`` the hand-written kernels'."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    k0 = K1.operations + K2.operations
+    k0 = K1.operations + K2.operations + K3.operations
     with FlopCounterMode(display=False) as counter:
         out = fn(*args, **kwargs)
-    kernel = K1.operations + K2.operations - k0
+    kernel = K1.operations + K2.operations + K3.operations - k0
     return out, {"flops": float(counter.get_total_flops()) + kernel, "kernel_flops": kernel}
 
 
