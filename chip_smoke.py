@@ -9,7 +9,10 @@ Phases, one output line each:
   2. kernel   each kernel against its plain PyTorch version on the card, at the main path's
               shapes and at edge shapes, with kernel / plain / library timings and bounds; K3
               at an eval batch's shapes (64 x 4000^2 full-mesh pairs with the registry's mask,
-              64 x 2048^2 sampled pairs) equal to its plain form bit for bit
+              64 x 2048^2 sampled pairs) equal to its plain form bit for bit; K4 at each of the
+              blessed trunk's 147 BN sites at B 64 (the inputs the trunk hands it, BN statistics
+              away from (0, 1)) equal to the plain chain bit for bit, its summed ms per eval
+              batch against its bound and the plain chain's
   3. f32      the predict slice at test size on the card (TF32 off) against the same port on
               the CPU: same weights, same ODE start state
   4. predict  the blessed eval config (patch 256, bs 64, S 100, 50 dpm3m steps, topk 30/10,
@@ -22,14 +25,16 @@ Phases, one output line each:
               kernels, and the count and time of copy / cast kernels
   5b. graphs  (predict) the captured steps against the eager path: the f32 slice at test size
               (TF32 off) and the blessed bf16 batch replayed bit for bit equal to an eager run;
-              K1 = 50 and K2 = 2 in a replayed batch by the tallies and by the profiler's
-              kernel names; host launches, device busy ms and idle share of a replayed and an
-              eager batch; frames/s over 5 eager and 5 replayed batches in turns; the capture's
+              K1 = 50, K2 = 2 and K4 = 147 (one a BN site) in a replayed batch by the tallies
+              and by the profiler's kernel names (a replayed train step: none of the four);
+              host launches, device busy ms and idle share of a replayed and an eager batch;
+              frames/s over 5 eager and 5 replayed batches in turns; the capture's
               seconds and pool
   6. eval     the eval entry point, ``engine.runner.run`` in-process, at the blessed config
               (bf16, 4 batches of 64, the viz dumps of batch 0): frames/s over the batches after
               the first, the predict / metrics / host split, peak memory, K1 = 50, K2 = 2
-              and K3 = 4 launches a batch, the headline metrics, the files written, and
+              and K3 = 4 launches a batch (K4's 147 are counted by the predict and graphs
+              lines), the headline metrics, the files written, and
               ``--eval_path`` re-scoring the dumped pkl to the object report the eval logged
   7. eval_f32 the metrics and testers on the card against the CPU for the same predictions,
               TF32 left on, within 1e-5 m; then (the ``graphs`` line, part metrics) one blessed
@@ -582,6 +587,7 @@ def main() -> int:
         from vpho_tpu_torch.models import denoiser as DEN
         from vpho_tpu_torch.models import vpho as V
         from vpho_tpu_torch.ops import bank_mlp as K1
+        from vpho_tpu_torch.ops import bn_act as K4
         from vpho_tpu_torch.ops import cuda_build
         from vpho_tpu_torch.ops import metric_nn as K3
         from vpho_tpu_torch.ops import min_dist as K2
@@ -796,6 +802,78 @@ def main() -> int:
            if k not in ("source", "replaces", "route")})
     del k3_calls, vf, vs
 
+    # ---- 2d. K4 bn_act: every BN site of the blessed trunk at B 64 -------------------------
+    from vpho_tpu_torch.models import layers as LY
+
+    k4_sites, k4_real = [], K4.bn_act
+
+    def k4_record(x, mean, var, weight, bias, eps, act=None, residual=None):
+        k4_sites.append((x.clone(), act, None if residual is None else residual.clone()))
+        return k4_real(x, mean, var, weight, bias, eps, act, residual)
+
+    K4.bn_act = k4_record
+    try:
+        with torch.inference_mode():
+            model.trunk(batch)
+    finally:
+        K4.bn_act = k4_real
+    n_sites = len(k4_sites)
+    check(n_sites == 147, f"K4: the blessed trunk has {n_sites} BN sites, not 147")
+    rg = torch.Generator().manual_seed(6)
+    k4, k4_bns = dict(bytes=0, channels_last_sites=0), []
+    for x, act, res in k4_sites:
+        bn = LY.BatchNorm2d(x.shape[1])
+        with torch.no_grad():               # statistics away from (0, 1), as spread_weights'
+            bn.running_mean.normal_(0.0, 0.1, generator=rg)
+            bn.running_var.uniform_(0.5, 1.5, generator=rg)
+            bn.weight.normal_(1.0, 0.1, generator=rg)
+            bn.bias.normal_(0.0, 0.02, generator=rg)
+        bn = bn.to(dev).eval()
+        k4_bns.append(bn)
+        with torch.inference_mode():
+            got = K4.bn_act(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps,
+                            act, res)
+            want = LY.bn_act_plain(bn, x, act, res)
+            check(torch.equal(got, want) and got.stride() == want.stride(),
+                  f"K4 {tuple(x.shape)} {act} residual={res is not None}: differs from the "
+                  f"plain chain in {int((got != want).sum())} elements")
+        k4["bytes"] += K4.traffic(x, res)
+        k4["channels_last_sites"] += int(not x.is_contiguous())
+
+    def k4_batch(plain):
+        """A replay's 147 sites, K4 or the plain chain, captured as one graph (as the predict
+        graph replays them, without the host's launch time)."""
+        def sites():
+            for (x, act, res), bn in zip(k4_sites, k4_bns):
+                if plain:
+                    LY.bn_act_plain(bn, x, act, res)
+                else:
+                    K4.bn_act(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps,
+                              act, res)
+
+        with torch.inference_mode():
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                sites()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                sites()
+        ms = cuda_ms(graph.replay, 10)
+        del graph
+        return ms
+
+    k4.update(ms=k4_batch(False), plain_ms=k4_batch(True),
+              bound_ms=k4["bytes"] / PEAK_BYTES * 1e3)
+    k4_row = dict(name="bn_act", route="cuda", source="vpho_tpu_torch/csrc/bn_act.cu",
+                  replaces="none: the JAX package leaves batch norm to XLA",
+                  bit_identical=True, sites=n_sites, bound_by="bytes", **k4)
+    say(phase="kernel", per="eval batch (147 launches, one a BN site)",
+        **{k: v for k, v in k4_row.items() if k not in ("source", "replaces", "route")})
+    del k4_sites, k4_bns
+    free_memory()
+
     # ---- 3. f32 slice on the card against the same port on the CPU ------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -833,7 +911,7 @@ def main() -> int:
     predict_step.capture(batch, x0)                 # the eager warm-up, then the capture
     torch.cuda.synchronize()
     capture_wall_s = time.perf_counter() - t_start
-    K1.launches = K2.launches = K3.launches = 0
+    K1.launches = K2.launches = K3.launches = K4.launches = 0
     n_batches, times = 3, []
     for _ in range(n_batches):
         torch.cuda.synchronize()
@@ -844,6 +922,9 @@ def main() -> int:
     launches = {"bank_mlp": K1.launches, "min_dist": K2.launches, "metric_nn": K3.launches}
     check(launches == {"bank_mlp": 50 * n_batches, "min_dist": 2 * n_batches, "metric_nn": 0},
           f"launch counts {launches}")
+    k4_row["launches"] = K4.launches
+    check(K4.launches == n_sites * n_batches, f"K4 launched {K4.launches} times in "
+                                              f"{n_batches} replays of {n_sites} sites")
     shapes = {"reg_hand_vert": (B, 778, 3), "hand_heatmap": (B, 21, 64, 64),
               "obj_heatmap": (B, 27, 64, 64), "diff_final_hand_mano": (B, S, 58),
               "diff_final_hand_vert": (B, S, 778, 3), "diff_final_obj_6d": (B, S, 9),
@@ -946,15 +1027,20 @@ def main() -> int:
     default_differ = sorted(k for k, v in bf16_eager.items() if not torch.equal(bf16_replay[k], v))
     del bf16_eager, bf16_replay
     # (c) one replayed batch and one eager batch under the profiler; the tallies of the replay
-    K1.launches = K2.launches = K3.launches = 0
+    K1.launches = K2.launches = K3.launches = K4.launches = 0
     rep = profiled(lambda: predict_step(batch, x0))
-    rep_tallies = {"bank_mlp": K1.launches, "min_dist": K2.launches, "metric_nn": K3.launches}
+    rep_tallies = {"bank_mlp": K1.launches, "min_dist": K2.launches, "metric_nn": K3.launches,
+                   "bn_act": K4.launches}
     rep_profiler = {"bank_mlp": count_named(rep["kernels"], "bank_mlp_kernel"),
                     "min_dist": count_named(rep["kernels"], "min_dist_kernel"),
-                    "metric_nn": count_named(rep["kernels"], "metric_nn_kernel")}
+                    "metric_nn": count_named(rep["kernels"], "metric_nn_kernel"),
+                    "bn_act": count_named(rep["kernels"], "bn_act_kernel")}
     eag = profiled(lambda: V.forward_predict(model, ctx, batch, x0=x0))
-    check(rep_tallies == rep_profiler == {"bank_mlp": 50, "min_dist": 2, "metric_nn": 0},
+    check(rep_tallies == rep_profiler == {"bank_mlp": 50, "min_dist": 2, "metric_nn": 0,
+                                          "bn_act": n_sites},
           f"graphs: a replayed batch's launches, tallies {rep_tallies}, profiler {rep_profiler}")
+    check(count_named(rep["kernels"], "bn_fw_inf") == 0,
+          "graphs: a replayed eval batch still launched cuDNN's inference batch norm")
     # (d) frames/s, eager and replayed in turns
     eager_ms, replay_ms = [], []
     for _ in range(6):
@@ -979,6 +1065,7 @@ def main() -> int:
         pool_gb=graph.pool_bytes / 1e9)
     for name in kernels:
         kernels[name]["launches_by_path_replayed_batch"] = rep_tallies[name]
+    k4_row["launches_by_path_replayed_batch"] = rep_tallies["bn_act"]
 
     # ---- 6. eval: the eval entry point in-process at the blessed config, bf16 ------------
     import dataclasses
@@ -1316,11 +1403,14 @@ def main() -> int:
         replayed=window(t_rep), eager=window(t_eag), peak_mem_gb=graphs_peak_gb,
         replayed_kernel_launches={"bank_mlp": count_named(t_rep["kernels"], "bank_mlp_kernel"),
                                   "min_dist": count_named(t_rep["kernels"], "min_dist_kernel"),
-                                  "metric_nn": count_named(t_rep["kernels"], "metric_nn_kernel")})
+                                  "metric_nn": count_named(t_rep["kernels"], "metric_nn_kernel"),
+                                  "bn_act": count_named(t_rep["kernels"], "bn_act_kernel")})
     check(count_named(t_rep["kernels"], "bank_mlp_kernel") == 0
           and count_named(t_rep["kernels"], "min_dist_kernel") == 0
-          and count_named(t_rep["kernels"], "metric_nn_kernel") == 0,
+          and count_named(t_rep["kernels"], "metric_nn_kernel") == 0
+          and count_named(t_rep["kernels"], "bn_act_kernel") == 0,
           "graphs train: a replayed train step launched a hand-written kernel")
+    k4_row["launches_train_step_replayed"] = 0
     for name in kernels:
         kernels[name]["launches_by_path"]["train_step_replayed"] = 0
     del trainer_t, tbatch, losses, tstep, tgraph, replay_losses
@@ -1869,7 +1959,8 @@ def main() -> int:
     ddp_phase(dev, card, eval_argv, kernels)
 
     print(card)
-    print(json.dumps({"kernels": [kernels["bank_mlp"], kernels["min_dist"], kernels["metric_nn"]]}))
+    print(json.dumps({"kernels": [kernels["bank_mlp"], kernels["min_dist"], kernels["metric_nn"],
+                                  k4_row]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

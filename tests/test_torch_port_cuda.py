@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (K1 bank-MLP, K2 nearest-vertex search, K3 the metrics'
-nearest points) against their plain PyTorch versions on the card, the object metrics on the
+nearest points, K4 the trunk's batch norm with its add and activation) against their plain
+PyTorch versions on the card, the object metrics on the
 card against the CPU, one training step on the card, the device preprocess
 (``--device_preprocess``) on the card against itself on the CPU, and the captured steps
 (``engine/graphs.py``): a replay equal to the eager run bit for bit, the kernels' tallies
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from vpho_tpu_torch.ops import bank_mlp as K1
+from vpho_tpu_torch.ops import bn_act as K4
 from vpho_tpu_torch.ops import metric_nn as K3
 from vpho_tpu_torch.ops import min_dist as K2
 
@@ -107,6 +109,38 @@ def _nn_case(seed, N, P, Q, masked=False):
     return a.astype(np.float32), b.astype(np.float32), mask
 
 
+def bn_stats(bn, kind, seed):
+    """Fill an eval-mode BN module's statistics and affine parameters: "seed" by the
+    benchmark's rules (``benchmark/weights.py``: means N(0, 0.1), variances e^N(0, 0.3), scales
+    N(1, 0.1), shifts N(0, 0.02)), "random" far wider (means N(0, 3), variances e^N(0, 3),
+    scales N(0, 2), shifts N(0, 1))."""
+    g = torch.Generator().manual_seed(seed)
+    C = bn.num_features
+    r = lambda s: torch.randn(C, generator=g) * s
+    wide = kind == "random"
+    with torch.no_grad():
+        bn.running_mean.copy_(r(3.0 if wide else 0.1))
+        bn.running_var.copy_(r(3.0 if wide else 0.3).exp())
+        bn.weight.copy_(r(2.0) if wide else 1.0 + r(0.1))
+        bn.bias.copy_(r(1.0 if wide else 0.02))
+    return bn.eval()
+
+
+def ulps(got, want):
+    """(elements that differ, the largest difference in units in the last place of the dtype)
+    of two tensors of one dtype, by their bits read as ordered integers."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[got.dtype]
+    lo = torch.iinfo(bits).min
+
+    def ordered(t):
+        i = t.contiguous().view(bits).long()
+        return torch.where(i < 0, lo - i, i)
+
+    d = (ordered(got) - ordered(want)).abs()
+    return int((d > 0).sum()), int(d.max()) if d.numel() else 0
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -182,6 +216,160 @@ def test_metric_nn_kernel_matches_plain_bit_for_bit(cuda_device, N, P, Q, masked
         assert g.shape == r.shape and g.dtype == r.dtype == torch.float32
         assert torch.equal(g.view(torch.int32), r.view(torch.int32)), \
             int((g.view(torch.int32) != r.view(torch.int32)).sum())
+
+
+def trunk_sites(model):
+    """The trunk's BN sites, counted from the module tree: every ``BatchNorm2d`` once and the
+    shared layer4's again, as the object stream runs it too (147 for ``VPHONet``: 95 in the
+    backbone, 52 in the heatmap heads and encoders)."""
+    from vpho_tpu_torch.models.layers import BatchNorm2d
+
+    count = lambda m: sum(isinstance(x, BatchNorm2d) for x in m.modules())
+    return count(model) + count(model.feature_extractor.layer4_h)
+
+
+def _checked_sites(monkeypatch, model):
+    """From here on every K4 launch is held against ``bn_act_plain`` on the same inputs; returns
+    the list each launch appends to: (shape, dtype, layout, act, residual, elements that
+    differ, largest ulp difference, same strides)."""
+    from vpho_tpu_torch.models import layers as L
+
+    by_mean = {m.running_mean.data_ptr(): m for m in model.modules()
+               if isinstance(m, L.BatchNorm2d)}
+    real, sites = K4.bn_act, []
+
+    def checked(x, mean, var, weight, bias, eps, act=None, residual=None):
+        got = real(x, mean, var, weight, bias, eps, act, residual)
+        want = L.bn_act_plain(by_mean[mean.data_ptr()], x, act, residual)
+        sites.append((tuple(x.shape), x.dtype, K4._layout(x), act, residual is not None)
+                     + ulps(got, want) + (got.stride() == want.stride(),))
+        return got
+
+    monkeypatch.setattr(K4, "bn_act", checked)
+    return sites
+
+
+@pytest.mark.parametrize("stats", ["seed", "random"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_bn_act_kernel_at_every_trunk_site(cuda_device, monkeypatch, dtype, stats):
+    """The blessed trunk (patch 256, ``VPHONet.trunk`` in eval mode, no autograd) at B 64 and
+    B 1: each of its 147 BN sites launches K4 once, equal bit for bit and stride for stride to
+    ``bn_act_plain`` on the same input.  The weights are the benchmark's for seed 7, the BN
+    statistics those or wide random ones (``bn_stats``)."""
+    from benchmark.weights import make_state_dict
+    from vpho_tpu_torch.data import fixtures
+    from vpho_tpu_torch.models import layers as L
+    from vpho_tpu_torch.models import vpho as V
+
+    cfg = V.ModelConfig(compute_dtype=dtype)
+    ctx = V.make_context(cfg, device=cuda_device)
+    model = V.build_model(cfg, device=cuda_device)
+    model.load_state_dict(make_state_dict(7, cuda_device))
+    if stats == "random":
+        for i, m in enumerate(m for m in model.modules() if isinstance(m, L.BatchNorm2d)):
+            bn_stats(m, "random", i)
+    sites = _checked_sites(monkeypatch, model)
+    for B in (64, 1):
+        del sites[:]
+        batch = fixtures.make_batch(ctx, seed=B, batch_size=B, patch_size=256)
+        with torch.inference_mode():
+            model.trunk(batch)
+        torch.cuda.synchronize()
+        assert len(sites) == trunk_sites(model) == 147
+        assert {s[1] for s in sites} == {getattr(torch, dtype)}
+        bad = [s for s in sites if s[5] or not s[7]]
+        assert not bad, (B, bad)
+
+
+# K4's edge shapes: vector paths (H x W a multiple of 8 in NCHW, C in channels-last), ragged
+# H x W (5 x 7) and C (21, 3) that take the scalar path, a 1 x 1 map (both layouts at once)
+BN_SHAPES = [(64, 256, 16, 16), (1, 2048, 8, 8), (3, 24, 5, 7), (2, 21, 6, 6), (2, 40, 1, 1),
+             (1, 3, 9, 9)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", [torch.contiguous_format, torch.channels_last])
+def test_bn_act_kernel_matches_plain_at_edge_shapes(cuda_device, dtype, layout):
+    """K4 against ``bn_act_plain`` bit for bit at ``BN_SHAPES``, both kinds of statistics,
+    every activation, with and without a residual; then an input and a residual 2 or 4 bytes
+    off 16-byte alignment (the scalar path)."""
+    from vpho_tpu_torch.models.layers import BatchNorm2d, bn_act_plain
+
+    g = torch.Generator().manual_seed(0)
+
+    def check(bn, x, r):
+        for act in K4.ACTS:
+            for res in (None, r):
+                got = K4.bn_act(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                                bn.eps, act, res)
+                want = bn_act_plain(bn, x, act, res)
+                assert got.stride() == want.stride() == x.stride()
+                assert ulps(got, want) == (0, 0), (tuple(x.shape), act, res is not None)
+
+    for i, shape in enumerate(BN_SHAPES):
+        for kind in ("seed", "random"):
+            bn = bn_stats(BatchNorm2d(shape[1]), kind, i).to(cuda_device)
+            x, r = ((torch.randn(shape, generator=g) * 2).to(cuda_device, dtype)
+                    .contiguous(memory_format=layout) for _ in range(2))
+            check(bn, x, r)
+    N, C, H, W = 2, 24, 5, 8
+    bn = bn_stats(BatchNorm2d(C), "seed", 0).to(cuda_device)
+    buf = (torch.randn(2, N * C * H * W + 1, generator=g) * 2).to(cuda_device, dtype)
+    view = lambda t: t[1:].view(N, C, H, W) if layout == torch.contiguous_format else \
+        t[1:].view(N, H, W, C).permute(0, 3, 1, 2)
+    check(bn, view(buf[0]), view(buf[1]))
+
+
+def test_bn_act_wrapper_refuses_bad_inputs(cuda_device):
+    """A strided input, a dtype other than bf16 / f32, a tensor off the card, a residual that
+    differs from x in layout, dtype or shape, statistics of another length or dtype, or an
+    unknown activation raise before any launch."""
+    from vpho_tpu_torch.models.layers import BatchNorm2d
+
+    bn = BatchNorm2d(8).to(cuda_device).eval()
+    stats = (bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps)
+    x = torch.randn(2, 8, 4, 4, device=cuda_device)
+    before = K4.launches
+    for bad in (x[..., ::2], x.transpose(2, 3), x.half(), x.double(), x.cpu(), x[0]):
+        with pytest.raises(ValueError):
+            K4.bn_act(bad, *stats)
+    for res in (x.contiguous(memory_format=torch.channels_last), x.bfloat16(), x[:1]):
+        with pytest.raises(ValueError):
+            K4.bn_act(x, *stats, "leaky", res)
+    for i, t in enumerate((bn.running_mean.half(), bn.running_var[:4])):
+        with pytest.raises(ValueError):
+            K4.bn_act(x, *(t if j == i else s for j, s in enumerate(stats)))
+    with pytest.raises(ValueError):
+        K4.bn_act(x, *stats, "gelu")
+    assert K4.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_predict_equals_the_plain_chain(cuda_device, monkeypatch, dtype):
+    """``forward_predict`` with K4 at the trunk's BN sites (statistics by ``bn_stats``' seed
+    rules) equals it with every site forced onto ``bn_act_plain``, bit for bit; cuDNN's
+    deterministic algorithms, as the f32 deconvolutions may sum with atomics."""
+    from vpho_tpu_torch.models import backbone
+    from vpho_tpu_torch.models import layers as L
+
+    V, ctx, model, batch, x0s = _small_predict(cuda_device, dtype)
+    for i, m in enumerate(m for m in model.modules() if isinstance(m, L.BatchNorm2d)):
+        bn_stats(m, "seed", i)
+    torch.backends.cudnn.deterministic = True
+    try:
+        before = K4.launches
+        fused = V.forward_predict(model, ctx, batch, x0=x0s[0])
+        assert K4.launches - before == trunk_sites(model)
+        monkeypatch.setattr(L, "bn_act", L.bn_act_plain)
+        monkeypatch.setattr(backbone, "bn_act", L.bn_act_plain)
+        before = K4.launches
+        plain = V.forward_predict(model, ctx, batch, x0=x0s[0])
+        assert K4.launches == before
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert set(fused) == set(plain)
+    for k, v in plain.items():
+        assert torch.equal(fused[k], v), k
 
 
 def test_object_metrics_on_the_card_match_the_cpu(cuda_device):
@@ -447,26 +635,28 @@ def test_predict_graph_times_its_stages_on_every_replay(cuda_device):
 
 def test_kernel_tallies_count_replayed_launches(cuda_device):
     """bf16 (K1 is the bf16 hand head's fast path): after the capture, n replays move K1's
-    launches by n x the ODE's score evaluations and K2's by 2n (stages 4 and 5), and each
-    ``operations`` tally by n x a batch's."""
+    launches by n x the ODE's score evaluations, K2's by 2n (stages 4 and 5) and K4's by n x
+    the trunk's BN sites, each ``operations`` tally by n x a batch's and K4's ``bytes_moved``
+    by n x a batch's."""
     from vpho_tpu_torch.diffusion.sampler import score_evals
     from vpho_tpu_torch.engine.trainer import make_predict_step
 
     V, ctx, model, batch, x0s = _small_predict(cuda_device, "bfloat16")
     step = make_predict_step(model, ctx)
-    k1_0, k2_0 = K1.operations, K2.operations
+    k1_0, k2_0, k4_0 = K1.operations, K2.operations, K4.bytes_moved
     V.forward_predict(model, ctx, batch, x0=x0s[0])
-    per_batch = (K1.operations - k1_0, K2.operations - k2_0)
-    assert per_batch[0] > 0 and per_batch[1] > 0
+    per_batch = (K1.operations - k1_0, K2.operations - k2_0, K4.bytes_moved - k4_0)
+    assert per_batch[0] > 0 and per_batch[1] > 0 and per_batch[2] > 0
     step.capture(batch, x0s[0])                       # warm-up (counted) and capture (not)
-    K1.launches = K2.launches = K1.operations = K2.operations = 0
+    K1.launches = K2.launches = K4.launches = K1.operations = K2.operations = K4.bytes_moved = 0
     n = 3
     for i in range(n):
         step(batch, x0s[i % 2])
     torch.cuda.synchronize()
     assert K1.launches == n * score_evals("dpm3m", 5)
     assert K2.launches == 2 * n
-    assert (K1.operations, K2.operations) == (n * per_batch[0], n * per_batch[1])
+    assert K4.launches == n * trunk_sites(model)
+    assert (K1.operations, K2.operations, K4.bytes_moved) == tuple(n * v for v in per_batch)
 
 
 def test_capture_refuses_a_host_wait(cuda_device):
@@ -532,8 +722,10 @@ def _four_calls(device, tmp_path, sd, eager):
     trainer.model.load_state_dict(sd)
     batch = fixtures.make_batch(trainer.ctx, seed=0, batch_size=4, patch_size=64)
     gen = torch.Generator(device).manual_seed(7)
+    k4 = K4.launches
     losses = [trainer.train_step(batch, generator=gen, eager=eager) for _ in range(4)]
     torch.cuda.synchronize()
+    assert K4.launches == k4                 # train mode keeps the plain chain
     if not eager:
         step = trainer._step("train")
         assert len(step.graph.graphs) == 1 and step.apply_graph is not None

@@ -1,6 +1,8 @@
 """The port's kernels K1 (bank-MLP) and K2 (nearest-vertex search) against the JAX package's
 Pallas kernels, K3 (the metrics' nearest points, which no Pallas kernel had) against the JAX
-package's distance block and its operation counts, plus the port's import and device rules.
+package's distance block and its operation counts, K4's dispatch (the trunk's BN sites: on the
+CPU the plain chain, the same operations the trunk ran before K4), plus the port's import and
+device rules.
 
 On the CPU each port wrapper takes its kernel's plain version; here that plain version is
 held against the Pallas kernel run in interpret mode, on the inputs of the JAX package's own
@@ -15,16 +17,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from benchmark import roofline, roofline_k3
 from vpho_tpu.engine.metrics import _pairwise_min_dist as jax_pairwise_min_dist
 from vpho_tpu.ops.pallas_bank import fused_bank_mlp
 from vpho_tpu.ops.pallas_dist import min_dist_and_idx as jax_min_dist
+from vpho_tpu_torch.models import backbone as BB
+from vpho_tpu_torch.models import layers as L
 from vpho_tpu_torch.ops import bank_mlp as K1
+from vpho_tpu_torch.ops import bn_act as K4
 from vpho_tpu_torch.ops import metric_nn as K3
 from vpho_tpu_torch.ops import min_dist as K2
 from test_torch_port_cuda import (_bank_case, _dist_case, _nn_case, _port_bank,
-                                  assert_argmin_equivalent)
+                                  assert_argmin_equivalent, bn_stats)
 
 torch.set_num_threads(1)
 
@@ -159,6 +165,151 @@ def test_cuda_wrappers_refuse_bad_inputs():
                  (a, torch.empty((2, 3, 50), device="meta").transpose(1, 2), None)):
         with pytest.raises(ValueError):
             K3.nearest(*args)
+
+
+# The trunk's BN sites as the port ran them before K4, written out: the norm in float32 returned
+# in the input's dtype, then the call site's residual add and activation.
+def _chain_bn(bn, x):
+    return F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias, False,
+                        0.0, bn.eps).to(x.dtype)
+
+
+def _chain_bottleneck(blk, x):
+    lrelu = lambda t: F.leaky_relu(t, 0.01)
+    out = lrelu(_chain_bn(blk.bn1, blk.conv1(x)))
+    out = lrelu(_chain_bn(blk.bn2, blk.conv2(out)))
+    out = _chain_bn(blk.bn3, blk.conv3(out))
+    residual = x if blk.downsample is None else \
+        _chain_bn(blk.downsample[1], blk.downsample[0](x))
+    return lrelu(out + residual.to(out.dtype))
+
+
+def _chain_fpn(m, x):
+    if m.compute_dtype is not None:
+        x = x.to(m.compute_dtype)
+    c1 = F.max_pool2d(F.leaky_relu(_chain_bn(m.layer0_h[1], m.layer0_h[0](x)), 0.01), 3, 2, 1)
+    layer = lambda seq, t: [t := _chain_bottleneck(b, t) for b in seq[0]][-1]
+    c2 = layer(m.layer1_h, c1)
+    c3_h, c3_o = layer(m.layer2_h, c2), layer(m.layer2_o, c2)
+    c4_h, c4_o = layer(m.layer3_h, c3_h), layer(m.layer3_o, c3_o)
+    c5_h, c5_o = layer(m.layer4_h, c4_h), layer(m.layer4_h, c4_o)
+    return m._top_down("h", c2, c3_h, c4_h, c5_h), m._top_down("o", c2, c3_o, c4_o, c5_o)
+
+
+def _chain_residual(blk, x):
+    lrelu = lambda t: F.leaky_relu(t, 0.01)
+    h = blk.conv1(lrelu(_chain_bn(blk.bn, x)))
+    h = blk.conv2(lrelu(_chain_bn(blk.bn1, h)))
+    h = blk.conv3(lrelu(_chain_bn(blk.bn2, h)))
+    skip = x if blk.conv4 is None else blk.conv4(x)
+    return h + skip.to(h.dtype)
+
+
+def _chain_encoder(m, x):
+    x, x_ls = m.project(x), []
+    for i, blk in enumerate(m.reg):
+        x = _chain_residual(blk, x)
+        if (i + 1) % m.n_modules == 0:
+            x = F.max_pool2d(x, 2, 2)
+            x_ls.append(x)
+    return x.reshape(x.shape[0], -1), x_ls
+
+
+def _chain_heatmap(m, x):
+    x = _chain_bn(m.conv_layers[2], m.conv_layers[1](m.conv_layers[0](x)))
+    x = torch.relu(_chain_bn(m.deconv_layers[1], m.deconv_layers[0](x)))
+    return m.final_layer(x.float())
+
+
+@pytest.mark.parametrize("act,residual", [(None, False), ("leaky", False), ("relu", False),
+                                          ("leaky", True)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bn_act_plain_is_the_chain(dtype, act, residual):
+    """``bn_act_plain``, and ``bn_act`` on the CPU, equal the chain the BN sites ran before K4 bit
+    for bit: the norm (``_chain_bn``), the add in x's dtype, leaky ReLU (0.01) or ReLU; K4 is
+    not launched."""
+    g = torch.Generator().manual_seed(3)
+    bn = bn_stats(L.BatchNorm2d(24), "random", 1)
+    x, r = ((torch.randn(3, 24, 5, 7, generator=g) * 2).to(dtype) for _ in range(2))
+    res = r if residual else None
+    want = _chain_bn(bn, x)
+    want = want + r.to(want.dtype) if residual else want
+    want = {None: want, "leaky": F.leaky_relu(want, 0.01), "relu": torch.nn.ReLU()(want)}[act]
+    before = K4.launches
+    for got in (L.bn_act_plain(bn, x, act, res), L.bn_act(bn, x, act, res)):
+        assert got.dtype == dtype and torch.equal(got, want)
+    with torch.inference_mode():
+        assert torch.equal(L.bn_act(bn, x, act, res), want)
+    assert K4.launches == before
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("module", ["fpn", "encoder", "heatmap"])
+def test_trunk_modules_keep_the_chain(module, dtype):
+    """On the CPU in eval mode the backbone, an encoder and a heatmap head, their BN sites routed
+    through ``bn_act``, return what the chain written out above returns, bit for bit (BN
+    statistics by the benchmark's rules, small inputs)."""
+    g = torch.Generator().manual_seed(5)
+    m, chain, shape = {
+        "fpn": (lambda: BB.FPNBackbone(dtype), _chain_fpn, (2, 3, 32, 32)),
+        "encoder": (lambda: L.Encoder(40, 32, compute_dtype=dtype), _chain_encoder,
+                    (2, 40, 16, 16)),
+        "heatmap": (lambda: L.HeadHeatmap(32, 5, 32, compute_dtype=dtype), _chain_heatmap,
+                    (2, 32, 8, 8)),
+    }[module]
+    torch.manual_seed(0)
+    m = m().eval()
+    for i, bn in enumerate(b for b in m.modules() if isinstance(b, L.BatchNorm2d)):
+        bn_stats(bn, "seed", i)
+    x = torch.randn(shape, generator=g)
+    with torch.inference_mode():
+        got, want = m(x), chain(m, x)
+    flat = lambda t: [t] if isinstance(t, torch.Tensor) else [u for v in t for u in flat(v)]
+    assert len(flat(got)) == len(flat(want)) > 0
+    for a, b in zip(flat(got), flat(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_train_mode_bn_keeps_its_statistics(dtype):
+    """In train mode (and under autograd) a BN site takes the plain chain: normalised with the
+    batch's biased variance, the running statistics moved to 0.9 old + 0.1 batch, the
+    gradient flowing; K4 is not launched."""
+    g = torch.Generator().manual_seed(4)
+    bn = bn_stats(L.BatchNorm2d(16), "seed", 2).train()
+    mean0, var0 = bn.running_mean.clone(), bn.running_var.clone()
+    x = (torch.randn(4, 16, 6, 6, generator=g) * 2 + 1).to(dtype).requires_grad_()
+    r = torch.randn(4, 16, 6, 6, generator=g).to(dtype)
+    before = K4.launches
+    y = L.bn_act(bn, x, "leaky", r)
+    x32 = x.detach().float()
+    var, mean = torch.var_mean(x32, dim=(0, 2, 3), correction=0)
+    want = F.batch_norm(x32, None, None, bn.weight.detach(), bn.bias.detach(), True, 0.0,
+                        bn.eps).to(dtype)
+    assert torch.equal(y.detach(), F.leaky_relu(want + r, 0.01))
+    assert torch.equal(bn.running_mean, mean0.mul_(0.9).add_(mean, alpha=0.1))
+    assert torch.equal(bn.running_var, var0.mul_(0.9).add_(var, alpha=0.1))
+    y.float().sum().backward()
+    assert x.grad is not None and bn.weight.grad is not None
+    bn.eval()
+    z = L.bn_act(bn, x, "relu")                     # eval mode, autograd recording
+    assert z.requires_grad and torch.equal(z.detach(), torch.relu(_chain_bn(bn, x.detach())))
+    assert K4.launches == before
+
+
+def test_vpho_state_dict_keys_load_strictly():
+    """Routing the BN sites through ``bn_act`` renamed nothing: ``VPHONet``'s 982 keys are the
+    reference model's (``benchmark/weights.py::layout``) and load into it strictly."""
+    from benchmark.weights import layout
+    from vpho_tpu_torch.models.vpho import VPHONet
+
+    with torch.device("meta"):
+        port = VPHONet(compute_dtype=torch.bfloat16)
+    sd = port.state_dict()
+    assert len(sd) == 982
+    assert [(k, tuple(v.shape), v.dtype) for k, v in sd.items()] == layout()
+    with torch.device("meta"):
+        VPHONet().load_state_dict(sd, strict=True)
 
 
 def test_port_imports_no_jax():

@@ -20,10 +20,10 @@ replayed with one host launch:
   * Warm-up and capture run under ``torch.cuda.set_sync_debug_mode("error")``, so an operation
     that would wait for the device raises where it is called.
   * The hand-written kernels' tallies (``ops/bank_mlp.py``, ``ops/min_dist.py``,
-    ``ops/metric_nn.py``: ``launches`` and ``operations``) move only when their Python wrapper
-    runs, which under a graph is at capture.  A capture records how far it moved each one and
-    puts them back; every replay adds those moves again, so the tallies count the launches that
-    ran.
+    ``ops/metric_nn.py``: ``launches`` and ``operations``; ``ops/bn_act.py``: ``launches`` and
+    ``bytes_moved``) move only when their Python wrapper runs, which under a graph is at
+    capture.  A capture records how far it moved each one and puts them back; every replay adds
+    those moves again, so the tallies count the launches that ran.
   * Every capture is logged once (``vpho_torch`` logger, the run's ``info.log``): the step's
     name, the signature, its seconds and the memory its pool reserved.
   * ``capturable(device)`` is the one place that decides whether a step on ``device`` is
@@ -54,13 +54,14 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..ops import bank_mlp as K1
+from ..ops import bn_act as K4
 from ..ops import metric_nn as K3
 from ..ops import min_dist as K2
 from ..utils import marks as M
 from . import profiling as P
 
 COUNTERS = ((K1, "launches"), (K1, "operations"), (K2, "launches"), (K2, "operations"),
-            (K3, "launches"), (K3, "operations"))
+            (K3, "launches"), (K3, "operations"), (K4, "launches"), (K4, "bytes_moved"))
 log = logging.getLogger("vpho_torch")
 
 

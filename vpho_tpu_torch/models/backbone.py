@@ -12,7 +12,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.image import resize_bilinear
-from .layers import BatchNorm2d, Conv2d, lrelu
+from .layers import BatchNorm2d, Conv2d, bn_act
 
 
 class Bottleneck(nn.Module):
@@ -35,11 +35,10 @@ class Bottleneck(nn.Module):
         ) if downsample else None
 
     def forward(self, x):
-        out = lrelu(self.bn1(self.conv1(x)))
-        out = lrelu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+        out = bn_act(self.bn1, self.conv1(x), "leaky")
+        out = bn_act(self.bn2, self.conv2(out), "leaky")
         residual = x if self.downsample is None else self.downsample(x)
-        return lrelu(out + residual.to(out.dtype))
+        return bn_act(self.bn3, self.conv3(out), "leaky", residual)
 
 
 def _res_layer(inplanes: int, planes: int, blocks: int, stride: int, compute_dtype):
@@ -84,7 +83,8 @@ class FPNBackbone(nn.Module):
         """x (B, 3, H, W) -> (p2_hand, p2_obj), each (B, 256, H/4, W/4)."""
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
-        c1 = F.max_pool2d(lrelu(self.layer0_h(x)), 3, 2, 1)
+        conv, bn = self.layer0_h
+        c1 = F.max_pool2d(bn_act(bn, conv(x), "leaky"), 3, 2, 1)
         c2 = self.layer1_h(c1)
         c3_h, c3_o = self.layer2_h(c2), self.layer2_o(c2)
         c4_h, c4_o = self.layer3_h(c3_h), self.layer3_o(c3_o)

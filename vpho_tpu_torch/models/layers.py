@@ -6,6 +6,10 @@ Batch norm always normalizes in float32 (as Flax does) and returns the input's d
 Attribute names follow the reference torch modules, so ``state_dict`` keys match the
 reference checkpoints.
 
+At each batch-norm site the norm, the call site's residual add and its activation go through
+``bn_act``: on a card in eval mode with no autograd one hand-written pass (K4,
+``ops/bn_act.py``), else ``bn_act_plain``, the same chain as separate operations.
+
 Dropout (p = 0.1, the cross modules' only random op) is active under ``train()`` and takes its
 keep masks from a ``DropoutMasks`` source, so that they are an input like every other draw.
 """
@@ -19,11 +23,36 @@ import torch.distributed.nn.functional as dist_nn
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import bn_act as _k4
 from ..parallel import mesh as _mesh
 
 
-def lrelu(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, 0.01)
+def activate(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
+    """A BN site's activation: None, "leaky" (slope 0.01) or "relu"."""
+    if act == "leaky":
+        return F.leaky_relu(y, 0.01)
+    return torch.relu(y) if act == "relu" else y
+
+
+def bn_act_plain(bn: "BatchNorm2d", x: torch.Tensor, act: Optional[str] = None,
+                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A BN site as separate operations: ``bn.normalize`` (train or eval mode), the residual
+    added in the norm's dtype, the activation."""
+    y = bn.normalize(x)
+    if residual is not None:
+        y = y + residual.to(y.dtype)
+    return activate(y, act)
+
+
+def bn_act(bn: "BatchNorm2d", x: torch.Tensor, act: Optional[str] = None,
+           residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``activate(bn(x) + residual, act)``.  On a card in eval mode with no autograd recording,
+    one launch of K4 (which raises on a layout or dtype it does not take); on the CPU, in train
+    mode or under autograd, ``bn_act_plain``.  Both give the same numbers."""
+    if x.device.type == "cpu" or bn.training or torch.is_grad_enabled():
+        return bn_act_plain(bn, x, act, residual)
+    return _k4.bn_act(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps, act,
+                      None if residual is None else residual.to(x.dtype))
 
 
 def _cast(dtype, *ts):
@@ -78,6 +107,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     (``bench_torch_bn_variance.py``)."""
 
     def forward(self, x):
+        return bn_act(self, x)
+
+    def normalize(self, x):
+        """The norm alone, as separate operations (``bn_act_plain``'s first step)."""
         x32 = x.float()
         if not self.training:
             y = F.batch_norm(x32, self.running_mean, self.running_var, self.weight, self.bias,
@@ -190,9 +223,9 @@ class Residual(nn.Module):
         self.conv4 = Conv2d(in_ch, out_ch, 1, compute_dtype=d) if in_ch != out_ch else None
 
     def forward(self, x):
-        h = self.conv1(lrelu(self.bn(x)))
-        h = self.conv2(lrelu(self.bn1(h)))
-        h = self.conv3(lrelu(self.bn2(h)))
+        h = self.conv1(bn_act(self.bn, x, "leaky"))
+        h = self.conv2(bn_act(self.bn1, h, "leaky"))
+        h = self.conv3(bn_act(self.bn2, h, "leaky"))
         skip = x if self.conv4 is None else self.conv4(x)
         return h + skip.to(h.dtype)
 
@@ -238,12 +271,12 @@ class HeadHeatmap(nn.Module):
             ConvTranspose2d(hidden_dim, hidden_dim // 2, 4, stride=2, padding=1, bias=False,
                             compute_dtype=d),
             BatchNorm2d(hidden_dim // 2),
-            nn.ReLU(),
         )
         self.final_layer = Conv2d(hidden_dim // 2, out_dim, 1)
 
     def forward(self, x):
-        x = self.deconv_layers(self.conv_layers(x))
+        deconv, bn = self.deconv_layers
+        x = bn_act(bn, deconv(self.conv_layers(x)), "relu")
         return self.final_layer(x.float())
 
 
